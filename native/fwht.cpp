@@ -1,8 +1,8 @@
 // Native fast Walsh-Hadamard transform for the CPU oracle path.
 //
 // Role (SURVEY.md §2 #8): the reference lineage's only native component is a
-// C FWHT extension (pyfht-style).  The TPU compute path uses Pallas/XLA
-// instead (sparc_ldpc_tpu/ops/fwht.py); this C++ library serves the NumPy
+// C FWHT extension (pyfht-style).  The device path uses XLA matmul mode
+// contractions instead (sparc_ldpc_tpu/ops/fwht.py); this C++ library serves the NumPy
 // oracle, making the CPU throughput baseline (BASELINE.md 10x target) an
 // honest, optimized one rather than a strawman.
 //
@@ -10,7 +10,9 @@
 // in-place, natural (Sylvester) ordering H_N = H_2 ⊗ ... ⊗ H_2, matching
 // sparc_ldpc_tpu.oracle.fwht.fwht_np and the JAX mode-contraction transform.
 //
-// Build: make -C native   ->  native/libsparcfwht.so
+// Build: make -C native   ->  native/libsparcfwht.so (the oracle also builds
+// it at first use).  Single-threaded: the oracle transforms one vector per
+// call.
 
 #include <cstdint>
 #include <cstddef>
@@ -40,12 +42,10 @@ extern "C" {
 
 // In-place FWHT over `batch` contiguous vectors of length `n` (n = 2^k).
 void fwht_f64(double* x, int64_t batch, int64_t n) {
-  #pragma omp parallel for schedule(static)
   for (int64_t b = 0; b < batch; ++b) fwht_one(x + b * n, n);
 }
 
 void fwht_f32(float* x, int64_t batch, int64_t n) {
-  #pragma omp parallel for schedule(static)
   for (int64_t b = 0; b < batch; ++b) fwht_one(x + b * n, n);
 }
 

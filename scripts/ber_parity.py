@@ -1,30 +1,27 @@
-"""Deep BER-parity artifact (SURVEY.md §4.3, round-1 VERDICT missing #4).
+"""Deep BER-parity artifact (SURVEY.md §4.3).
 
-For judged configs 1 (plain_small), 2 (pa_l1024), and a reduced judged-4
-chain (concat_small): oracle sweep (NumPy float64 + native C++ FWHT), TPU
-sweep (fused kernel path), and the SE prediction (plain SPARC only),
-persisted to one jsonl per preset and overlaid in one plot.
-tests/test_ber_parity.py asserts CI overlap from the persisted artifact.
+For judged configs 1 (plain_small), 2 (pa_l1024), 3 (fast_l4096), reduced
+judged-4 chains (concat_small, concat_wifi_small, concat_r56_small) and the
+shipped concat geometry (concat_full): oracle sweep (NumPy float64 +
+native C++ FWHT), GPU sweep (the shipped XLA route), and the SE prediction
+(plain SPARC only), persisted to one jsonl per preset and overlaid in one
+plot.  tests/test_ber_parity.py asserts CI overlap from the persisted
+artifact.
 
-Trial targets: TPU >= 10^4/point everywhere.  Oracle: 10^4 for
-plain_small (0.65 s/trial at L=256); 4x10^3 for pa_l1024 (0.65 s/trial at
-L=1024 — the jsonl carries a kind="note" record showing the frame-
-clustered joint 95% CI is 3x wider than every measured oracle-vs-TPU gap,
-so more trials change no conclusion); 2x10^3 for concat_small (~0.9
-s/trial: two AMP passes + BP).
+Trial targets: GPU >= 10^4/point everywhere.  Oracle floors per preset in
+ORACLE_TRIALS_FLOOR (float64 trials cost 0.65-8 s each on a CPU core).
 
 Subcommands:
-  oracle --preset pa_l1024 [--trials 10000] [--workers 2]
-  tpu    --preset pa_l1024 [--trials 10240] [--batch 512]
-  se     --preset pa_l1024
-  check  [--preset ...]          CI-overlap table from the jsonl
-  plot   [--preset ...]          overlay figure -> results/ber_parity_X.png
+  oracle  --preset pa_l1024 [--trials 10000] [--workers 2]
+  gpu     --preset pa_l1024 [--trials 10240] [--batch 1024] [--control]
+  se      --preset pa_l1024
+  check   [--preset ...]          CI-overlap table from the jsonl
+  plot    [--preset ...]          overlay figure -> results/ber_parity_X.png
 
-Grids (chosen so BER spans the waterfall with countable errors at 10^4
-trials): plain_small 2.0/3.0/4.0 dB, pa_l1024 1.5/2.25/3.0 dB.
-
-Wall-time discipline (round-1 VERDICT weak #4): compile/warmup is excluded
-from every throughput figure; records carry compile_s separately.
+The gpu subcommand runs in ONE process on one card; every record carries
+utils/provenance.artifact_meta (preset, config hash, commit, platform,
+device kind and count, the card's name and power limit).  Compile/warmup is
+excluded from every throughput figure; records carry compile_s separately.
 """
 
 from __future__ import annotations
@@ -43,15 +40,14 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 from sparc_ldpc_tpu.config import (ConcatConfig, LdpcConfig, PRESETS,
                                    SparcConfig)
 
-# Reduced concatenated config for the oracle-vs-TPU concat CI leg (round-2
-# VERDICT missing #2b): same chain as the judged `concat` preset — iterative
-# PA inner SPARC, array-code outer LDPC, bp_ok-gated decision feedback —
-# at L=256 so the float64 oracle can afford >=5x10^3 trials/point.  The
-# oracle twin (oracle/concat.py) implements the identical partition and
-# gating rules.  Since round 4 the outer decode runs engine="qc",
-# schedule="layered" — the decode path the SHIPPED concat presets actually
-# use (round-3 VERDICT missing #1: the flooding-edge leg anchored a route
-# that never ships); the float64 twin is oracle.ldpc.bp_decode_layered.
+# Reduced concatenated config for the oracle-vs-GPU concat CI leg: same
+# chain as the judged `concat` preset — iterative PA inner SPARC,
+# array-code outer LDPC, bp_ok-gated decision feedback — at L=256 so the
+# float64 oracle can afford >=5x10^3 trials/point.  The oracle twin
+# (oracle/concat.py) implements the identical partition and gating rules.
+# The outer decode runs engine="qc", schedule="layered" — the decode path
+# the shipped concat presets use; the float64 twin is
+# oracle.ldpc.bp_decode_layered.
 CONCAT_PRESETS = {
     "concat_small": ConcatConfig(
         sparc=SparcConfig(L=256, M=512, R=1.0, power_alloc="iterative",
@@ -63,9 +59,8 @@ CONCAT_PRESETS = {
     # reduced L=256 inner SPARC carrying ONE 802.11n n=648 rate-1/2
     # codeword (72 protected sections = f_prot 0.28), decoded layered on
     # the QC engine — the float64 anchor for the checked-in standard
-    # base matrix + its dual-diagonal structure end-to-end (round 4;
-    # previously the standard codes were anchored by structure tests and
-    # decode-success only).  User rate 1980/2304 = 0.859.
+    # base matrix + its dual-diagonal structure end-to-end.  User rate
+    # 1980/2304 = 0.859.
     "concat_wifi_small": ConcatConfig(
         sparc=SparcConfig(L=256, M=512, R=1.0, power_alloc="iterative",
                           op_kind="hadamard"),
@@ -75,10 +70,9 @@ CONCAT_PRESETS = {
     # High-rate outer code (judged family 4c, `concat_r56`): the same
     # reduced L=256 inner SPARC carrying ONE constructed rate-5/6 n=648
     # QC codeword (data/qc_n648_r56.qc, 802.11n dual-diagonal structure)
-    # — round-4 VERDICT missing #2: dense check rows (high dc) are where
-    # normalized min-sum + LLR clipping are most delicate, and neither
-    # the r56 preset nor any constructed higher-rate code had an oracle
-    # anchor (the wifi leg covers only the standard r1/2 structure).
+    # — dense check rows (high dc) are where normalized min-sum + LLR
+    # clipping are most delicate (the wifi leg covers only the standard
+    # r1/2 structure).
     # User rate 2196/2304 = 0.953.
     "concat_r56_small": ConcatConfig(
         sparc=SparcConfig(L=256, M=512, R=1.0, power_alloc="iterative",
@@ -86,11 +80,10 @@ CONCAT_PRESETS = {
         ldpc=LdpcConfig(kind="qc", path="qc_n648_r56", engine="qc",
                         schedule="layered", bp_iters=32),
         f_prot=0.28, feedback_iters=8),
-    # The SHIPPED full-size concat geometry itself (round-4 VERDICT
-    # missing #3): L=1024, z=31 array code, f_prot=0.5, num_cw=6
-    # codewords/frame — previously anchored only by the L=256 concat
-    # twin + pa_l1024 plain-AMP parity COMPOSING; this is the direct
-    # float64 leg that closes the composition assumption.  One
+    # The SHIPPED full-size concat geometry itself: L=1024, z=31 array
+    # code, f_prot=0.5, num_cw=6 codewords/frame — the direct float64 leg,
+    # so the anchor does not rest on the L=256 twin and the pa_l1024
+    # plain-AMP parity composing.  One
     # pre-waterfall point (3.0 dB: FER=1.0, BER ~1.7e-3 — every frame
     # contributes countable, clustered bit errors, so ~10^3 trials give
     # a tight frame-variance CI at 0.89 s/trial on this 2-core host).
@@ -116,25 +109,17 @@ GRIDS = {
     "concat_full": [3.0],
     # judged config 3 (L=4096, ML=2^21): direct float64 anchors at the
     # waterfall HEAD, where FER~1 makes a few hundred oracle trials a
-    # tight BER measurement (~300k bit errors at 5.0 dB) — round-3
-    # VERDICT missing #2.  Round 5 extended the head to 6.0 dB (FER
-    # 0.996 per the r5 sweep; ~26 clustered bit errors/frame) and then
-    # into the former "SE-only tail": 6.5 dB (FER 0.605, ~180 frame
-    # errors at 300 trials) became affordable once the host went idle
-    # (measured ~8 s/trial — the r3 15 s estimate carried host load),
-    # and 7.0 dB (FER 0.117; 1000 trials -> ~120 clustered frame
-    # errors) closed the LAST sweep point: the entire shipped
-    # fast_l4096 grid is now directly float64-anchored and no
-    # SE-only tail claim remains.
+    # tight BER measurement (~300k bit errors at 5.0 dB); 6.0 dB (~26
+    # clustered bit errors/frame), 6.5 dB (~180 frame errors at 300
+    # oracle trials, ~8 s/trial on a CPU core) and 7.0 dB (1000 trials ->
+    # ~120 clustered frame errors) extend the anchor over the whole
+    # fast_l4096 grid.
     "fast_l4096": [5.0, 5.5, 6.0, 6.5, 7.0],
 }
-# Oracle-leg trial floors enforced by tests/test_ber_parity.py (round-3
-# VERDICT weak #1/#6: thin oracle legs must not silently slip into a
-# regenerated artifact).  Sufficiency arithmetic: with frame-clustered
-# CIs (ci_ber below), the floor is set so the joint 95% bound sits well
-# under the decision threshold — measured gap/bound at these floors is
-# <=0.32 (pa_l1024), and concat_small moved from 2k trials (gap/bound up
-# to 0.86, one bad draw from failing) to 5k (bound shrinks ~1.6x).
+# Oracle-leg trial floors enforced by tests/test_ber_parity.py (thin
+# oracle legs must not silently slip into a regenerated artifact).  With
+# frame-clustered CIs (ci_ber below), each floor is set so the joint 95%
+# bound sits well under the decision threshold.
 # fast_l4096's 300 trials ride FER=1.0 waterfall-head points where every
 # frame contributes ~10^3 bit errors (~3x10^5 total — a tight direct
 # anchor); the CI there is frame-variance dominated, not count-limited.
@@ -153,18 +138,14 @@ ORACLE_TRIALS_FLOOR = {
     "fast_l4096": 300,
 }
 
-# Relative floor on the oracle-vs-TPU bound (run_check / test_ber_parity).
-# Default 1%: f32-vs-float64 shifts the plain_small metastable-plateau BER
-# ~0.7% relative (measured identical for f32 XLA and bf16 fused — the
-# round-2 control).  concat_small: 15% — the concatenated chain's
-# mid-waterfall (FER ~ 0.57 at 3.0 dB) is a threshold phenomenon where
-# f32-anywhere shifts BER ~12% relative vs float64: the round-4
-# kind="control_f32xla" records (scripts/concat_f32_control.py: XLA
-# kernels, transform_precision="highest", NO bf16/Pallas) land on the
-# bf16 fused leg within 0.5% at every point while the f64 oracle sits
-# 12% away at 3.0 dB.  The tight implementation check is therefore
-# control-vs-TPU (run_check below, 2%-floor), and oracle-vs-TPU carries
-# the measured precision-sensitivity floor.
+# Relative floor on the oracle-vs-GPU bound (run_check / test_ber_parity).
+# Default 1%: the allowance for f32-vs-float64 rounding at the plain
+# presets' plateau points.  The concatenated chains: 15% — their
+# mid-waterfall is a threshold phenomenon where f32 anywhere shifts BER by
+# ~12% relative vs float64.  The tight implementation check is therefore
+# control-vs-GPU (run_check below, 2% floor: the kind="control_f32xla" leg
+# runs every transform at "highest"), and oracle-vs-GPU carries the
+# measured precision-sensitivity floor.
 REL_FLOOR = {"concat_small": 0.15, "concat_wifi_small": 0.15,
              "concat_r56_small": 0.15, "concat_full": 0.15}
 OUT = os.path.join(os.path.dirname(__file__), "..", "results")
@@ -258,7 +239,7 @@ def run_oracle(preset, trials, workers):
             print(f"oracle {preset} @ {ebno}: already done", flush=True)
             continue
         # distinct seed space per point (oracle folds seed into its own
-        # SeedSequence; the TPU path uses an independent fold_in tree).
+        # SeedSequence; the GPU path uses an independent fold_in tree).
         # Chunks are journaled (kind="oracle_chunk") so a killed run
         # resumes where it stopped — campaign.py's restart discipline.
         done = {r["chunk"]: r for r in load_records(preset)
@@ -296,125 +277,91 @@ def run_oracle(preset, trials, workers):
             native_fwht=has_native(), dtype="float64"))
 
 
-# -------------------------------------------------------------------- tpu
+# -------------------------------------------------------------------- gpu
 
-def run_tpu_concat(preset, trials, batch, force=False):
-    """TPU leg of the concat CI artifact: the full chain at the shipped
-    kernel route (fused split inner+feedback AMP, QC/array BP), counters
-    from run_block_staged — the exact production path."""
-    from dataclasses import replace
-
-    from sparc_ldpc_tpu.models.concat import ConcatModel
-    from sparc_ldpc_tpu.utils import rng as rngu
-
-    cfg = CONCAT_PRESETS[preset]
-    # amp_noise_in_kernel=True mirrors the shipped concat presets (round
-    # 5): the kind="tpu" legs anchor the in-kernel pltpu-PRNG noise
-    # stream the production path actually rides.  The float64 oracle leg
-    # needs no change — the stream is distribution-identical, and the CI
-    # comparison is exactly the instrument for different-draw parity.
-    cfg = replace(cfg, sparc=replace(
-        cfg.sparc, amp_kernel="fused_split", amp_tol=0.0,
-        transform_precision="bf16", amp_noise_in_kernel=True))
-    n_blocks = (trials + batch - 1) // batch
-    for pi, ebno in enumerate(GRIDS[preset]):
-        if not force and have(preset, "tpu", ebno,
-                              min_trials=n_blocks * batch):
-            print(f"tpu {preset} @ {ebno}: already done", flush=True)
-            continue
-        model = ConcatModel.build(cfg, ebno_db=ebno)
-        run = model.run_block_staged
-        t0 = time.time()
-        _ = int(run(rngu.trial_keys(rngu.base_key(10**6), batch))
-                ["bit_errors"])
-        compile_s = time.time() - t0
-        be = fe = bp = tr = 0
-        be2 = 0.0
-        t0 = time.time()
-        for b in range(n_blocks):
-            keys = rngu.trial_keys(
-                rngu.block_key(rngu.point_key(rngu.base_key(0), pi), b),
-                batch)
-            out = run(keys)
-            be += int(out["bit_errors"])
-            be2 += float(out["bit_errors_sq"])
-            fe += int(out["frame_errors"])
-            bp += int(out["bp_ok"])
-            tr += batch
-        wall = time.time() - t0
-        append_record(preset, dict(
-            kind="tpu", ebno_db=ebno, trials=tr, bit_errors=be,
-            bit_errors_sq=be2, frame_errors=fe, bp_ok=bp,
-            k_bits=model.k_user, L=cfg.sparc.L,
-            ber=be / (tr * model.k_user), fer=fe / tr, wall_s=wall,
-            compile_s=compile_s, bits_per_s=tr * model.k_user / wall,
-            noise_in_kernel=cfg.sparc.amp_noise_in_kernel,
-            kernel=cfg.sparc.amp_kernel))
-
-
-def run_tpu(preset, trials, batch, force=False, noisek=False):
-    """TPU parity leg.  noisek=True (round 5, VERDICT r4 missing #1):
-    run the fused_split route with amp_noise_in_kernel=True and record
-    kind="tpu_noisek" — the in-kernel pltpu-PRNG/Box-Muller noise stream
-    the headline bench measures, anchored against the same float64
-    oracle legs (the stream is distribution-identical; only the draws
-    differ, which is what the CI comparison is built for)."""
+def _device_leg(preset, kind, cfg, trials, batch, force):
+    """Append one kind=`kind` record per grid point: the JAX route on the
+    device at hand, counters summed over whole blocks of the shared-compile
+    sweep runners (SparcSweep / ConcatSweep — the path the campaign CLI
+    drives), keys from an independent fold_in tree."""
     import jax
 
-    from dataclasses import replace
-    from sparc_ldpc_tpu.models.sparc import SparcModel
+    from sparc_ldpc_tpu.models.concat import ConcatSweep
+    from sparc_ldpc_tpu.models.sparc import SparcSweep
     from sparc_ldpc_tpu.utils import rng as rngu
+    from sparc_ldpc_tpu.utils.provenance import artifact_meta
 
-    if preset in CONCAT_PRESETS:
-        return run_tpu_concat(preset, trials, batch, force=force)
-    if preset == "fast_l4096":
-        # the L=4096 leg anchors the SHIPPED preset verbatim (fused auto-
-        # split kernel, amp_tol=1e-4 adaptive stop, bf16, and — round 5 —
-        # in-kernel noise) — the point of this artifact is the judged
-        # config-3 path, not a parity variant
-        cfg = PRESETS[preset]
-        batch = min(batch, 256)          # (B, L, M) f32 state at ML=2^21
-    else:
-        cfg = replace(PRESETS[preset], amp_kernel="fused_split", amp_tol=0.0,
-                      transform_precision="bf16",
-                      amp_noise_in_kernel=noisek)
-    kind = "tpu_noisek" if noisek else "tpu"
+    concat = isinstance(cfg, ConcatConfig)
+    sweep = ConcatSweep(cfg) if concat else SparcSweep(cfg)
+    meta = artifact_meta(preset, cfg)
     n_blocks = (trials + batch - 1) // batch
     for pi, ebno in enumerate(GRIDS[preset]):
         if not force and have(preset, kind, ebno,
                               min_trials=n_blocks * batch):
             print(f"{kind} {preset} @ {ebno}: already done", flush=True)
             continue
-        model = SparcModel.build(cfg, ebno_db=ebno)
-        run = jax.jit(model.run_block)
+        pt = sweep.model_for_point(ebno)
+        if concat:
+            run, kb = pt.run_block_staged, pt.k_user
+        else:
+            run, kb = pt.run_block, pt.cfg.k_bits
+            if not getattr(run, "_prejitted", False):
+                run = jax.jit(run)       # SE-schedule configs: per point
         t0 = time.time()
         # warmup compile on a throwaway key block — excluded from wall_s
         _ = int(run(rngu.trial_keys(rngu.base_key(10**6), batch))
                 ["bit_errors"])
         compile_s = time.time() - t0
-        be = fe = se_ = tr = 0
-        be2 = 0.0
+        tot = {}
         t0 = time.time()
         for b in range(n_blocks):
             keys = rngu.trial_keys(
                 rngu.block_key(rngu.point_key(rngu.base_key(0), pi), b),
                 batch)
-            out = run(keys)
-            be += int(out["bit_errors"])
-            be2 += float(out["bit_errors_sq"])
-            fe += int(out["frame_errors"])
-            se_ += int(out["section_errors"])
-            tr += batch
+            out = jax.device_get(run(keys))
+            for k, v in out.items():
+                tot[k] = tot.get(k, 0) + float(v)
         wall = time.time() - t0
-        append_record(preset, dict(
-            kind=kind, ebno_db=ebno, trials=tr, bit_errors=be,
-            bit_errors_sq=be2,
-            frame_errors=fe, section_errors=se_, k_bits=cfg.k_bits,
-            L=cfg.L, ber=be / (tr * cfg.k_bits), fer=fe / tr,
-            ser=se_ / (tr * cfg.L), wall_s=wall, compile_s=compile_s,
-            amp_iters=model.cfg.amp_iters,
-            noise_in_kernel=cfg.amp_noise_in_kernel,
-            bits_per_s=tr * cfg.k_bits / wall, kernel=cfg.amp_kernel))
+        tr = int(tot["trials"])
+        rec = dict(
+            kind=kind, ebno_db=ebno, trials=tr,
+            bit_errors=int(tot["bit_errors"]),
+            bit_errors_sq=tot["bit_errors_sq"],
+            frame_errors=int(tot["frame_errors"]), k_bits=kb,
+            L=(cfg.sparc if concat else cfg).L,
+            ber=tot["bit_errors"] / (tr * kb),
+            fer=tot["frame_errors"] / tr, wall_s=wall, compile_s=compile_s,
+            bits_per_s=tr * kb / wall, **meta)
+        if concat:
+            rec["bp_ok"] = int(tot["bp_ok"])
+        else:
+            rec["section_errors"] = int(tot["section_errors"])
+            rec["ser"] = tot["section_errors"] / (tr * cfg.L)
+            rec["amp_iters"] = pt.cfg.amp_iters
+        append_record(preset, rec)
+
+
+def run_gpu(preset, trials, batch, force=False, control=False):
+    """GPU parity leg at the preset's own configuration (kind="gpu"), or
+    with control=True the f32 control leg (kind="control_f32xla": every
+    transform at transform_precision="highest", no bf16 anywhere)."""
+    import jax
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"the gpu leg needs a GPU; JAX found "
+                         f"{dev.platform!r}")
+    cfg = get_cfg(preset)
+    if preset == "fast_l4096":
+        batch = min(batch, 256)          # (B, L*M) f32 state at ML=2^21
+    if control:
+        if isinstance(cfg, ConcatConfig):
+            cfg = cfg.replace(sparc=cfg.sparc.replace(
+                transform_precision="highest"))
+        else:
+            cfg = cfg.replace(transform_precision="highest")
+    _device_leg(preset, "control_f32xla" if control else "gpu", cfg,
+                trials, batch, force)
 
 
 # --------------------------------------------------------------------- se
@@ -426,7 +373,7 @@ def run_se(preset):
 
     if preset in CONCAT_PRESETS:
         # SE describes the inner AMP only; post-BP/feedback BER has no SE
-        # prediction, so the concat artifact is oracle-vs-TPU two-way.
+        # prediction, so the concat artifact is oracle-vs-GPU two-way.
         print(f"se {preset}: N/A for the concatenated chain", flush=True)
         return
     cfg = PRESETS[preset]
@@ -470,14 +417,6 @@ def ci_ber(rec):
     return max(half, 3.0 / (tr * k))
 
 
-# Presets whose fused_split+in-kernel-noise variant must carry a
-# CI-enforced kind="tpu_noisek" leg (round-5 VERDICT missing #1: the
-# headline BENCH configuration itself gets an oracle anchor).  The
-# concat twins and fast_l4096 anchor the stream through their kind="tpu"
-# legs directly (shipped presets ride noise-on since round 5).
-NOISEK_PRESETS = ("plain_small", "pa_l1024")
-
-
 def run_check(presets, strict=True):
     ok = True
     for preset in presets:
@@ -485,31 +424,26 @@ def run_check(presets, strict=True):
         for ebno in GRIDS[preset]:
             o = [r for r in recs if r["kind"] == "oracle"
                  and abs(r["ebno_db"] - ebno) < 1e-9]
-            t = [r for r in recs if r["kind"] == "tpu"
+            t = [r for r in recs if r["kind"] == "gpu"
                  and abs(r["ebno_db"] - ebno) < 1e-9]
             s = [r for r in recs if r["kind"] == "se"
                  and abs(r["ebno_db"] - ebno) < 1e-9]
             c = [r for r in recs if r["kind"] == "control_f32xla"
                  and abs(r["ebno_db"] - ebno) < 1e-9]
-            nk = [r for r in recs if r["kind"] == "tpu_noisek"
-                  and abs(r["ebno_db"] - ebno) < 1e-9]
             if not (o and t):
                 print(f"{preset} @ {ebno}: MISSING "
-                      f"(oracle={bool(o)}, tpu={bool(t)})")
+                      f"(oracle={bool(o)}, gpu={bool(t)})")
                 ok = False
                 continue
             o, t = o[-1], t[-1]
             gap = abs(o["ber"] - t["ber"])
-            # joint 95% CI, floored at a measured precision-sensitivity
-            # relative bound (REL_FLOOR; default 1% — the plain_small
-            # plateau control: f32 XLA 0.22166 +- 0.0011 == bf16 fused
-            # 0.2217, both below the float64 oracle 0.2234.  concat_small
-            # carries 15% from its round-4 control legs — see REL_FLOOR).
+            # joint 95% CI, floored at the precision-sensitivity relative
+            # bound (REL_FLOOR; default 1%)
             rel = REL_FLOOR.get(preset, 0.01)
             bound = max(math.hypot(ci_ber(o), ci_ber(t)),
                         rel * max(o["ber"], t["ber"]))
             line = (f"{preset} @ {ebno}: oracle {o['ber']:.3e} "
-                    f"tpu {t['ber']:.3e} |gap| {gap:.2e} "
+                    f"gpu {t['ber']:.3e} |gap| {gap:.2e} "
                     f"joint95 {bound:.2e} -> "
                     f"{'OK' if gap <= bound else 'APART'}")
             if s:
@@ -517,16 +451,16 @@ def run_check(presets, strict=True):
             print(line)
             ok &= gap <= bound
             if c:
-                # tight same-precision implementation check: the bf16
-                # fused production route vs the f32-XLA control, both on
-                # chip — precision sensitivity cancels, so this stays at
-                # a 2% relative floor
+                # tight same-platform implementation check: the shipped
+                # route vs the all-f32 control, both on the card —
+                # precision sensitivity mostly cancels, so this stays at a
+                # 2% relative floor
                 c = c[-1]
                 gap_c = abs(c["ber"] - t["ber"])
                 bound_c = max(math.hypot(ci_ber(c), ci_ber(t)),
                               0.02 * max(c["ber"], t["ber"]))
                 print(f"{preset} @ {ebno}: control(f32 xla) "
-                      f"{c['ber']:.3e} vs tpu |gap| {gap_c:.2e} "
+                      f"{c['ber']:.3e} vs gpu |gap| {gap_c:.2e} "
                       f"joint95 {bound_c:.2e} -> "
                       f"{'OK' if gap_c <= bound_c else 'APART'}")
                 ok &= gap_c <= bound_c
@@ -534,27 +468,8 @@ def run_check(presets, strict=True):
                 # REL_FLOOR presets lean on the control leg to separate
                 # precision sensitivity from implementation error — a
                 # regenerated artifact must not silently drop it
-                # (round-4 ADVICE medium)
                 print(f"{preset} @ {ebno}: MISSING control_f32xla leg "
                       f"(required for REL_FLOOR presets)")
-                ok = False
-            if nk:
-                # in-kernel-noise stream vs the SAME oracle leg (round-5
-                # VERDICT missing #1): distribution-identical stream,
-                # different draws — the CI is the instrument
-                nk = nk[-1]
-                gap_n = abs(o["ber"] - nk["ber"])
-                bound_n = max(math.hypot(ci_ber(o), ci_ber(nk)),
-                              rel * max(o["ber"], nk["ber"]))
-                print(f"{preset} @ {ebno}: tpu_noisek {nk['ber']:.3e} "
-                      f"vs oracle |gap| {gap_n:.2e} joint95 "
-                      f"{bound_n:.2e} -> "
-                      f"{'OK' if gap_n <= bound_n else 'APART'}")
-                ok &= gap_n <= bound_n
-            elif preset in NOISEK_PRESETS:
-                print(f"{preset} @ {ebno}: MISSING tpu_noisek leg "
-                      f"(required — anchors the shipped in-kernel noise "
-                      f"stream)")
                 ok = False
     return ok
 
@@ -568,11 +483,9 @@ def run_plot(presets):
         recs = load_records(preset)
         fig, ax = plt.subplots(figsize=(6, 4.2))
         for kind, fmt, label in (("oracle", "o-", "oracle (float64 CPU)"),
-                                 ("tpu", "s--", "TPU fused kernel"),
-                                 ("tpu_noisek", "d-.",
-                                  "TPU fused + in-kernel noise"),
+                                 ("gpu", "s--", "GPU (shipped route)"),
                                  ("control_f32xla", "^:",
-                                  "TPU control (f32 XLA)")):
+                                  "GPU control (f32 transforms)")):
             pts = sorted(
                 {r["ebno_db"]: r for r in recs if r["kind"] == kind}.items())
             if not pts:
@@ -590,7 +503,7 @@ def run_plot(presets):
         ax.set_xlabel("Eb/N0 (dB)")
         ax.set_ylabel("BER")
         flo = ORACLE_TRIALS_FLOOR.get(preset)
-        ax.set_title(f"BER parity — {preset} (>=10^4 TPU / "
+        ax.set_title(f"BER parity — {preset} (>=10^4 GPU / "
                      f">={flo} oracle trials/point, 95% CIs)")
         ax.grid(True, which="both", alpha=0.3)
         ax.legend()
@@ -602,29 +515,30 @@ def run_plot(presets):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("cmd", choices=["oracle", "tpu", "se", "check", "plot"])
+    ap.add_argument("cmd", choices=["oracle", "gpu", "se", "check", "plot"])
     ap.add_argument("--preset", action="append",
                     choices=list(GRIDS), default=None)
     ap.add_argument("--trials", type=int, default=10000)
-    ap.add_argument("--batch", type=int, default=512)
+    ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--workers", type=int, default=2)
     ap.add_argument("--force", action="store_true",
                     help="re-run legs even when records already exist "
                          "(appends; tests read the LAST record per point, "
                          "so this re-anchors the artifact on current code)")
-    ap.add_argument("--noisek", action="store_true",
-                    help="tpu leg with amp_noise_in_kernel=True -> "
-                         "kind='tpu_noisek' (anchors the in-kernel PRNG "
-                         "noise stream; non-concat presets only)")
+    ap.add_argument("--control", action="store_true",
+                    help="gpu leg with every transform at 'highest' -> "
+                         "kind='control_f32xla'")
     args = ap.parse_args()
     presets = args.preset or list(GRIDS)
     if args.cmd == "oracle":
         for p in presets:
             run_oracle(p, args.trials, args.workers)
-    elif args.cmd == "tpu":
+    elif args.cmd == "gpu":
+        from sparc_ldpc_tpu.utils.runtime import enable_compile_cache
+        enable_compile_cache()
         for p in presets:
-            run_tpu(p, max(args.trials, 10240), args.batch,
-                    force=args.force, noisek=args.noisek)
+            run_gpu(p, max(args.trials, 10240), args.batch,
+                    force=args.force, control=args.control)
     elif args.cmd == "se":
         for p in presets:
             run_se(p)

@@ -1,5 +1,4 @@
-"""A/B the LDPC BP engines on the real chip (docs/PERF.md discipline:
-whole jitted blocks, distinct inputs per rep, forced scalar readback).
+"""A/B the LDPC BP engines on the real chip (whole jitted blocks, distinct inputs per rep, forced scalar readback).
 
 Usage: python scripts/bp_bench.py [--B 192] [--sigma 0.62] [--reps 5]
 Code = the judged concat preset's array code (z=31, 4x24 -> n=744).

@@ -2,17 +2,17 @@
 
 Measures Monte-Carlo block throughput vs device count on whatever mesh is
 available:
-  - on this machine: N virtual CPU devices (validates the harness + the
-    sharded program; CPU timing is NOT the TPU number);
-  - on a real pod slice: run unchanged (devices come from jax.devices();
-    with jax.distributed it spans hosts) — records 1-chip/1-host/N-host
+  - on a CPU: N virtual CPU devices (validates the harness + the sharded
+    program; CPU timing is NOT a GPU number);
+  - on a multi-GPU host: run unchanged (devices come from jax.devices();
+    with jax.distributed it spans hosts) — records 1-card/1-host/N-host
     points per the BASELINE measurement plan.
 
 Weak scaling: per-device batch is fixed, so ideal efficiency keeps
 blocks/s/device constant.  Efficiency_N = throughput_N / (N * throughput_1).
 
 Usage:
-  python scripts/scaling_bench.py                # TPU/whatever is present
+  python scripts/scaling_bench.py                # GPUs/whatever is present
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python scripts/scaling_bench.py            # virtual 8-device check
 """
@@ -31,16 +31,9 @@ from sparc_ldpc_tpu.parallel.mesh import ShardingPolicy, make_mesh
 from sparc_ldpc_tpu.utils import rng as rngu
 
 
-def measure(n_dev: int, per_dev_batch: int = 16, reps: int = 5,
-            fused: bool = False) -> float:
-    # --fused: the production path on real TPU hardware — the whole-AMP
-    # Pallas kernel per device under the mesh (parallel/amp_sharded.py,
-    # pure-DP shard_map route).  Default stays XLA so the virtual-CPU
-    # harness check runs everywhere.
+def measure(n_dev: int, per_dev_batch: int = 16, reps: int = 5) -> float:
     cfg = SparcConfig(L=256, M=512, R=1.0, op_kind="hadamard",
-                      amp_iters=16, amp_tol=0.0,
-                      **(dict(amp_kernel="fused_split",
-                              transform_precision="bf16") if fused else {}))
+                      amp_iters=16, amp_tol=0.0)
     mesh = make_mesh(section_shards=1, devices=jax.devices()[:n_dev])
     policy = ShardingPolicy(mesh, section_axis=None)
     model = SparcModel.build(cfg, ebno_db=5.0, policy=policy)
@@ -65,14 +58,13 @@ def measure(n_dev: int, per_dev_batch: int = 16, reps: int = 5,
 
 
 def main():
-    fused = "--fused" in sys.argv
     avail = jax.device_count()
     counts = [n for n in (1, 2, 4, 8, 16, 32) if n <= avail]
-    print(f"devices available: {avail} ({jax.devices()[0].platform}) "
-          f"fused={fused}", file=sys.stderr)
+    print(f"devices available: {avail} ({jax.devices()[0].platform} "
+          f"{jax.devices()[0].device_kind})", file=sys.stderr)
     results = {}
     for n in counts:
-        bps = measure(n, fused=fused)
+        bps = measure(n)
         results[n] = bps
         eff = bps / (n * results[1])
         print(json.dumps(dict(devices=n, bits_per_s=round(bps, 1),

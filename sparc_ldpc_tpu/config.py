@@ -46,8 +46,8 @@ class SparcConfig:
         oracle/small-L only), "hadamard" (matrix-free partial Walsh-Hadamard)
         or "dct" (matrix-free subsampled DCT).  SURVEY.md App. A.3.
       op_seed: host-side seed fixing the operator's random row subset.  Part
-        of the code definition: oracle and TPU paths derive identical
-        operators from it.
+        of the code definition: the oracle and the JAX paths derive
+        identical operators from it.
       col_signs: optionally pre-multiply columns by a seeded Rademacher
         diagonal (extra randomization; off by default to follow the
         pyfht-lineage construction, SURVEY.md §2 #9).
@@ -56,10 +56,22 @@ class SparcConfig:
         < eps * tau2_t (SURVEY.md App. A.5).
       tau_mode: "online" (tau2_t = ||z_t||^2 / n) or "se" (precomputed
         state-evolution schedule).
-      transform_precision: MXU precision for the fast transforms —
+      transform_precision: matmul precision of the fast transforms —
         "highest" | "high" | "default" | "bf16" (ops.fwht.fwht_mxu).
-        "high" (3-pass f32) is accuracy-safe; "bf16" halves HBM traffic and
-        is validated for BER parity in tests/test_precision.py.
+        What each becomes on an H100 (XLA's GPU backend, from the
+        compiled HLO and the error of the transform against the float64
+        FWHT at N=2^19 and 2^21, relative L2; PERF.md):
+          "highest": cuBLAS GEMM in full f32 (3.6e-7);
+          "high":    cuBLAS GEMM in TF32 (3.6e-4) — not the 3-pass bf16
+                     it would be on other hardware;
+          "default": XLA's Triton GEMM fusion in TF32 (3.6e-4);
+          "bf16":    Triton GEMM fusion on bf16 operands, f32 accumulate
+                     (2.9e-3).
+        "bf16" rounds the data operand to bfloat16 (the +-1 Hadamard
+        factors are exact), halving the bytes each mode contraction
+        moves; it is validated for decision parity in
+        tests/test_precision.py.  On the CPU backend the three f32
+        precisions all compute in f32.
     """
 
     L: int = 256
@@ -76,10 +88,9 @@ class SparcConfig:
     amp_tol: float = 1e-6
     tau_mode: str = "online"
     transform_precision: str = "high"
-    # "mxu" (moveaxis between mode contractions) measured FASTER than the
-    # transpose-free "rev" scheme on v5e (422 vs 461 ms/block at bf16 —
-    # docs/PERF.md A/B table): XLA fuses the transposes into the dots better
-    # than the penultimate-dim contraction form lowers.  Keep both.
+    # "mxu" contracts each Kronecker mode with a moveaxis between modes;
+    # "rev" is the transpose-free variant whose output lives in reversed
+    # mode order (ops.fwht).  Same transform; A/B-able per config.
     fwht_scheme: str = "mxu"   # "mxu" | "rev"
     # transform backend under a section-sharded mesh: "gspmd" lets XLA shard
     # the mode contractions from the NamedShardings; "collective" uses the
@@ -88,46 +99,10 @@ class SparcConfig:
     fwht_dist: str = "gspmd"   # "gspmd" | "collective"
     # Residual domain for AMP with fast-transform operators.  "N" keeps z in
     # the transform domain (no gather/scatter) but carries a (B, N) state
-    # through the early-stop freeze mask — measured SLOWER on v5e (469 vs
-    # 422 ms/block, docs/PERF.md); "n" is the default.
+    # through the early-stop freeze mask; "n" is the default.
     amp_residual_space: str = "n"   # "n" | "N"
-    # "fused" runs the whole-AMP Pallas mega-kernel (all T iterations per
-    # codeword in VMEM, ops/amp_kernel.py) when the operator is eligible
-    # (ML == N, L,M <= 1024, online tau, no pinning); falls back to the XLA
-    # scan otherwise.  Fixed-T semantics: pair with amp_tol=0 for trace
-    # reproducibility.
-    # "fused_split" forces the 3-factor split transform (H_L = H_fa (x)
-    # H_fb) even at L <= 1024 — ~2.4x fewer transform FLOPs; A/B it per
-    # config (docs/PERF.md).
-    amp_kernel: str = "xla"   # "xla" | "fused" | "fused_split" | "fused_slab"
-    # In-kernel encode (round 3): on the fused single-device path,
-    # run_block passes the true section indices + embedded noise and the
-    # kernel synthesizes x = A beta0 itself — the XLA one-hot + encode
-    # FWHT (24% of headline block wall) disappear.  Same math and RNG
-    # draws; x differs from the XLA encode only in bf16 rounding
-    # association.  Set False to force the XLA encode (e.g. for
-    # bitwise-identical cross-route comparisons at tol > 0).
-    amp_encode_in_kernel: bool = True
-    # In-kernel noise (round 4): with in-kernel encode on the split
-    # kernel, the one remaining (B, L, M) HBM materialization of the
-    # trial path is the embedded channel noise (measured 14.7% of
-    # headline block wall — scripts/noise_probe.py).  When True, the
-    # kernel draws the masked AWGN itself (pltpu per-core PRNG seeded
-    # per codeword from the trial key + both-output Box-Muller;
-    # ops/amp_kernel.boxmuller_pair_f32 — the single-output variant
-    # measured net zero).  Distribution-identical to the jax.random
-    # stream but DIFFERENT draws, so cross-route counters are only
-    # statistically (not bitwise) comparable.  Since round 5 the fused
-    # shipped presets (fast_l4096, concat family) opt IN: the stream is
-    # anchored against the float64 oracle by CI-enforced parity legs
-    # (kind="tpu_noisek" for plain_small/pa_l1024 fused variants; the
-    # concat/fast_l4096 kind="tpu" legs ride it directly —
-    # tests/test_ber_parity.py).  Requires amp_encode_in_kernel + the
-    # split form + a real TPU (the Pallas interpreter has no PRNG
-    # lowering; CPU backends fall back to the XLA noise path).
-    amp_noise_in_kernel: bool = False
-    # SE-derived per-point iteration budget (SURVEY.md §7 hard-part 4,
-    # round-1 VERDICT item 8): when True, SparcModel.build shrinks
+    # SE-derived per-point iteration budget (SURVEY.md §7 hard-part 4):
+    # when True, SparcModel.build shrinks
     # amp_iters to design.se.se_converged_iters(tol=amp_auto_tol,
     # margin=amp_auto_margin) for its operating point — sweep batches are
     # SNR-homogeneous, so a converged SE trajectory bounds every codeword
@@ -156,8 +131,6 @@ class SparcConfig:
         if self.amp_residual_space not in ("n", "N"):
             raise ValueError(
                 f"unknown amp_residual_space {self.amp_residual_space!r}")
-        if self.amp_kernel not in ("xla", "fused", "fused_split", "fused_slab"):
-            raise ValueError(f"unknown amp_kernel {self.amp_kernel!r}")
 
     @property
     def logM(self) -> int:
@@ -230,14 +203,7 @@ class LdpcConfig:
       engine: BP message layout — "edge" (padded-dense adjacency, any H;
         ops.bp), "qc" (circulant (B,J,K,Z) tensors, QC codes only), or
         "auto" (qc when the code is quasi-cyclic).  Flooding messages
-        are engine-identical (parity-tested); pick per config from
-        on-chip A/B (docs/PERF.md).  Since round 5, "qc" layered
-        minsum/oms decodes on TPU backends route to the whole-decode-
-        in-VMEM Pallas kernel (ops/bp_qc_pallas.py: static rolls
-        instead of gathers, trace-time block sparsity) — an
-        implementation detail, valid because its outputs are BITWISE
-        equal to the XLA graph (tests/test_ldpc_qc.py asserts it);
-        "qc_xla" pins the XLA implementation for A/B and fallback.
+        are engine-identical (parity-tested).
       schedule: "flooding" or "layered" (row-layered MPA, ~2x fewer
         iterations; requires the qc engine).
     """
@@ -264,7 +230,7 @@ class LdpcConfig:
             raise ValueError(f"unknown ldpc kind {self.kind!r}")
         if self.decoder not in ("minsum", "oms", "spa"):
             raise ValueError(f"unknown decoder {self.decoder!r}")
-        if self.engine not in ("edge", "qc", "qc_xla", "auto"):
+        if self.engine not in ("edge", "qc", "auto"):
             raise ValueError(f"unknown bp engine {self.engine!r}")
         if self.schedule not in ("flooding", "layered"):
             raise ValueError(f"unknown bp schedule {self.schedule!r}")
@@ -329,35 +295,21 @@ PRESETS = {
     # 2. power-allocated SPARC L=1024, SE-derived allocation
     "pa_l1024": SparcConfig(L=1024, M=512, R=1.0, power_alloc="iterative",
                             op_kind="hadamard"),
-    # 3. fast-transform SPARC, L=4096 (matrix-free operator stress config)
-    # large-L perf config rides the fused split kernel (VPU-outer stage;
-    # 8.2 Mbit/s vs ~2.5 ms per codeword-iteration on the XLA path)
-    # amp_noise_in_kernel (round 5): the fused presets ship the in-kernel
-    # AWGN stream the headline bench runs (+4.4% headline, +2.2% L=4096,
-    # +1.5% concat) — oracle-anchored by the round-5 parity legs.
-    # plain_small/pa_l1024 ship the XLA kernel route where the flag
-    # cannot engage; their fused_split variants are anchored by the
-    # kind="tpu_noisek" parity legs instead.
+    # 3. fast-transform SPARC, L=4096 (matrix-free operator stress
+    # config): ML = 2^21, bf16 transforms, per-codeword early stop
     "fast_l4096": SparcConfig(L=4096, M=512, R=1.5, power_alloc="iterative",
-                              op_kind="hadamard", amp_kernel="fused",
-                              amp_tol=1e-4, transform_precision="bf16",
-                              amp_noise_in_kernel=True),
-    # 4. concatenated SPARC+LDPC (see ConcatConfig defaults).  BOTH AMP
-    # passes ride the fused split kernel since round 2: the pinned
-    # decision-feedback pass uses the kernel's pin tensor (App. A.7 step 5),
-    # halving block time vs the XLA feedback scan (71.5 -> 36 ms/block at
-    # B=32; frame/bp counters identical — docs/PERF.md).
+                              op_kind="hadamard", amp_tol=1e-4,
+                              transform_precision="bf16"),
+    # 4. concatenated SPARC+LDPC (see ConcatConfig defaults).  amp_tol=1e-4
+    # stops each codeword early on both AMP passes (main + pinned
+    # decision feedback).
     "concat": ConcatConfig(
-        # amp_tol=1e-4: in-kernel per-codeword early stop on both AMP
-        # passes (main + pinned feedback) — 69.3 -> 63.5 ms/block at B=128
-        # /3 dB with identical frame/bp counters (mean 23.5 iters vs 32).
         sparc=SparcConfig(L=1024, M=512, R=1.0, power_alloc="iterative",
-                          op_kind="hadamard", amp_kernel="fused_split",
-                          amp_tol=1e-4, transform_precision="bf16",
-                          amp_noise_in_kernel=True),
+                          op_kind="hadamard", amp_tol=1e-4,
+                          transform_precision="bf16"),
         # QC engine + row-layered schedule at half the iteration budget:
-        # layered@32 matches/beats flooding@64 decode quality (scripts/
-        # bp_bench.py A/B, docs/PERF.md) at half the BP compute.
+        # layered@32 matches/beats flooding@64 decode quality
+        # (scripts/bp_bench.py) at half the BP compute.
         ldpc=LdpcConfig(kind="array", z=31, rows_b=4, cols_b=24,
                         engine="qc", schedule="layered", bp_iters=32),
         f_prot=0.5,
@@ -368,9 +320,8 @@ PRESETS = {
     # sections carry 4 LDPC codewords per frame at f_prot=0.28.
     "concat_wifi": ConcatConfig(
         sparc=SparcConfig(L=1024, M=512, R=1.0, power_alloc="iterative",
-                          op_kind="hadamard", amp_kernel="fused_split",
-                          amp_tol=1e-4, transform_precision="bf16",
-                          amp_noise_in_kernel=True),
+                          op_kind="hadamard", amp_tol=1e-4,
+                          transform_precision="bf16"),
         ldpc=LdpcConfig(kind="qc", path="wifi_n648_r12", engine="qc",
                         schedule="layered", bp_iters=32),
         f_prot=0.28,
@@ -380,9 +331,8 @@ PRESETS = {
     # protected sections (k=540/cw vs 324); same frame geometry as 4b.
     "concat_r56": ConcatConfig(
         sparc=SparcConfig(L=1024, M=512, R=1.0, power_alloc="iterative",
-                          op_kind="hadamard", amp_kernel="fused_split",
-                          amp_tol=1e-4, transform_precision="bf16",
-                          amp_noise_in_kernel=True),
+                          op_kind="hadamard", amp_tol=1e-4,
+                          transform_precision="bf16"),
         ldpc=LdpcConfig(kind="qc", path="qc_n648_r56", engine="qc",
                         schedule="layered", bp_iters=32),
         f_prot=0.28,

@@ -1,9 +1,9 @@
 """Host-side, design-time numerics (NumPy float64).
 
 State evolution and power allocation are *inputs* to both the NumPy oracle
-and the TPU decode path — they define the code, so the two paths must share
+and the JAX decode path — they define the code, so the two paths must share
 them exactly (SURVEY.md §3.4: "result is a constant folded into decode
-configs").  The decode paths themselves (oracle vs JAX/Pallas) remain
+configs").  The decode paths themselves (oracle vs JAX) remain
 independent implementations for parity testing (SURVEY.md §4.1).
 """
 

@@ -2,7 +2,7 @@
 
 The operator *definition* — transform size N, the seeded random row subset,
 optional column sign flips — is part of the code, so the NumPy oracle and the
-TPU path must derive identical sets from the same config (SURVEY.md App. A.3;
+JAX path must derive identical sets from the same config (SURVEY.md App. A.3;
 §4.1 parity requires it).  Only the *application* of the operator differs per
 backend.
 
@@ -10,11 +10,11 @@ Construction (pyfht-lineage shape, SURVEY.md §2 #9):
   N    = 2^ceil(log2(max(n + 1, M*L)))         (power-of-two transform size)
   rows = seeded uniform random distinct subset of [1, N), |rows| = n, sorted
          (row 0 — the all-ones Walsh row — excluded; sorting is part of the
-         definition and improves gather locality on TPU).
+         definition and improves gather locality).
   cols = the first M*L natural columns (identity embedding when ML == N).
          With a random row subset, restricted Walsh columns are
          exchangeable, so a random column subset adds nothing while a natural
-         one keeps the TPU embedding gather-free and sharding-friendly.
+         one keeps the device embedding gather-free and sharding-friendly.
   signs (optional) = seeded Rademacher diagonal applied to columns.
 
 Scaling: A = H_N[rows, :ML] / sqrt(n) gives exactly unit-norm columns.

@@ -21,7 +21,7 @@ Codes with circulant structure ("array", "qc") additionally expose their
 
 The parity-check matrix H is reduced host-side (GF(2) Gauss-Jordan with
 column pivoting) to derive a systematic generator G; both the NumPy oracle
-and the TPU path encode with the same G and decode on the same H.
+and the JAX path encode with the same G and decode on the same H.
 """
 
 from __future__ import annotations
@@ -274,7 +274,7 @@ def build_code(cfg: LdpcConfig) -> LdpcCode:
 
 @dataclass
 class Adjacency:
-    """Padded dense adjacency for TPU-friendly flooding BP (SURVEY.md §7
+    """Padded dense adjacency for accelerator-friendly flooding BP (SURVEY.md §7
     hard-part 3: static-shape gathers instead of irregular segment ops).
 
     check_nbr: (m, max_dc) variable index per check slot, padded with 0.

@@ -194,9 +194,8 @@ def se_converged_iters(p_alloc: np.ndarray, n: int, M: int, sigma2: float,
 
     Returns the first t with |tau2_t - tau2_{t-1}| < tol * tau2_t, plus a
     safety margin, capped at T_max.  At the flagship point (L=1024, M=512,
-    R=1, 2 dB) SE plateaus at t~20 (tol 1e-4) and on-chip section-error
-    counts are flat from T=20 through T=32 (docs/PERF.md round-2 table),
-    so tol=1e-4 + margin 2 is conservative.  method="quad" (the exact
+    R=1, 2 dB) SE plateaus at t~20 (tol 1e-4), so tol=1e-4 + margin 2
+    is conservative.  method="quad" (the exact
     Laplace-transform quadrature) is the default: deterministic and ~20x
     cheaper than MC (1.5 s vs 30 s per point at L=1024 — the host-side SE
     cost lands on every sweep point when amp_iters_auto is on); plateau

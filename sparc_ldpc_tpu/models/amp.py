@@ -8,7 +8,8 @@ Onsager correction and online tau tracking:
     s_t   = beta_t + A^T z_t
     beta_{t+1} = eta(s_t; tau2_t)               (ops.denoiser)
 
-TPU-first structure:
+Structure (plain jax.numpy/lax; XLA fuses the chains and hands the
+transform contractions to the GEMM library):
   - `lax.scan` over a static iteration count T (XLA traces the body once);
   - per-codeword early stop is a *mask*, not control flow (SURVEY.md §7
     hard-part 4): once |tau2_t - tau2_{t-1}| < tol*tau2_t the state is
@@ -33,7 +34,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-from ..ops.denoiser import denoise, denoise_pallas
+from ..ops.denoiser import denoise
 from ..ops.operators import BatchedOperator
 
 
@@ -41,7 +42,7 @@ from ..ops.operators import BatchedOperator
 @dataclass(frozen=True)
 class AmpResult:
     """Final AMP state.  `posteriors`/`scores` are DERIVED lazily from
-    beta (round 5): every shipped consumer reads beta directly (the
+    beta: every shipped consumer reads beta directly (the
     concat chain folds it straight into LLRs —
     models/concat._protected_llrs_from_beta), so materializing two more
     (B, L, M) tensors eagerly would cost ~0.5 GB of HBM traffic per
@@ -78,103 +79,14 @@ def amp_decode(
     pinned_mask: Optional[jax.Array] = None,     # (B, L) bool
     pinned_idx: Optional[jax.Array] = None,      # (B, L) int32 pin targets
                                                  # (alternative to onehot)
-    use_pallas_denoiser: bool = False,
     policy=None,                                 # parallel.mesh.ShardingPolicy
     residual_space: str = "n",
-    fused: bool = False,
-    fused_interpret: bool = False,
-    fused_split: Optional[bool] = None,   # None = auto (split iff L > 1024)
-    fused_form: Optional[str] = None,     # "slab" = block-value dataflow kernel
-    encode_idx: Optional[jax.Array] = None,  # (B, L) int32: y IS the noise,
-                                             # kernel synthesizes the codeword
-    noise_seed: Optional[jax.Array] = None,  # (B, 2) uint32: kernel draws
-                                             # the noise too; y is unused
-    noise_sigma: Optional[jax.Array] = None,
 ) -> AmpResult:
-    if noise_seed is not None:
-        assert encode_idx is not None, \
-            "in-kernel noise requires in-kernel encode"
-        B = noise_seed.shape[0]
-    else:
-        B = y.shape[0]
+    B = y.shape[0]
     L = sq_npl.shape[0]
     ML = op.ML
     M = ML // L
 
-    # Fused whole-AMP Pallas kernel (ops.amp_kernel): all T iterations per
-    # codeword in VMEM.  Guards: eligible operator, MXU-sized factors.
-    # SE tau schedules ride an SMEM constant and decision-feedback pinning
-    # a per-codeword pin tensor (App. A.7 step 5), so the concat feedback
-    # pass stays on the fused path too.
-    # L <= 1024 uses the monolithic H_L kernel; 1024 < L <= 4096 routes to
-    # the split variant (H_L = H_fa (x) H_fb — a monolithic H_4096 constant
-    # is 32 MB and stalls Mosaic compile, the split compiles in ~40 s and
-    # measured ~10x the XLA path at L=4096).  See ops/amp_kernel.py.
-    # Under a mesh policy the kernel composes with sharding
-    # (parallel/amp_sharded.py): pure DP runs the mega-kernel per device;
-    # section-sharded runs the per-iteration Pallas-tile + ppermute loop.
-    if (fused and op.mask is not None and L <= 4096 and M <= 1024):
-        from ..ops.amp_kernel import amp_fused
-
-        # Pallas needs a real TPU; on the CPU backend (tests, --cpu debug
-        # runs) fall back to interpret mode so fused configs stay runnable.
-        if jax.default_backend() == "cpu":
-            fused_interpret = True
-            assert noise_seed is None, \
-                "in-kernel noise needs a real TPU (no interpreter PRNG); " \
-                "callers gate on the backend (SparcModel.run_block_params)"
-        if noise_seed is None:
-            y_n = op.embed_y(y).reshape(B, L, M)
-        else:
-            y_n = None          # the kernel synthesizes the masked AWGN
-        mask2d = op.mask.reshape(L, M)
-        # pin targets travel as (B, L) int32 indices (-1 = unpinned); the
-        # kernels synthesize the sq*one_hot rows in VMEM (round 5: drops
-        # the (B, L, M) f32 pin materialization + HBM stream, bitwise-
-        # identical because pinned rows hold exactly the resident sqo).
-        pin_idx = None
-        if pinned_mask is not None:
-            src = (pinned_idx if pinned_idx is not None
-                   else jnp.argmax(pinned_onehot, axis=-1))
-            pin_idx = jnp.where(pinned_mask, src, -1).astype(jnp.int32)
-        iters = jnp.full((B,), T, dtype=jnp.int32)
-        # every kernel form (mono/split/slab) and the sharded composition
-        # honor the in-kernel / masked per-codeword early stop (round-2
-        # VERDICT missing #3); schedule mode has no online tau to compare.
-        k_tol = tol if (tol > 0 and tau2_schedule is None) else 0.0
-        if policy is None:
-            out = amp_fused(y_n, mask2d, sq_npl, P, n, T,
-                            interpret=fused_interpret,
-                            split=fused_split, form=fused_form,
-                            tau2_schedule=tau2_schedule,
-                            pin_idx=pin_idx, tol=k_tol,
-                            encode_idx=encode_idx,
-                            noise_seed=noise_seed,
-                            noise_sigma=noise_sigma)
-            if k_tol:
-                beta3, trace, iters = out
-            else:
-                beta3, trace = out
-        else:
-            # pure-DP policies (section_shards == 1) compose with in-kernel
-            # encode: amp_fused_sharded slices the index tensor over the
-            # data axis.  Only SECTION-sharded meshes must encode in XLA
-            # (a codeword's one-hot spans shards there).
-            assert encode_idx is None or policy.section_shards == 1, (
-                "in-kernel encode: section-sharded policies encode in XLA")
-            from ..parallel.amp_sharded import amp_fused_sharded
-            beta3, trace, iters = amp_fused_sharded(
-                y_n, mask2d, sq_npl, P, n, T, policy,
-                tau2_schedule=tau2_schedule, pin_idx=pin_idx,
-                interpret=fused_interpret, fused_split=fused_split,
-                tol=k_tol, encode_idx=encode_idx,
-                noise_seed=noise_seed, noise_sigma=noise_sigma)
-        return AmpResult(beta=beta3, tau2_trace=trace, iters=iters,
-                         sq_npl=sq_npl)
-    assert encode_idx is None and noise_seed is None, (
-        "encode_idx/noise_seed require the fused kernel path (op.mask "
-        "present, L <= 4096); XLA-path callers encode outside amp_decode")
-    dn = denoise_pallas if use_pallas_denoiser else denoise
     c_bml = policy.constrain_bml if policy is not None else (lambda x: x)
     c_blm = policy.constrain_blm if policy is not None else (lambda x: x)
     c_bn = policy.constrain_bn if policy is not None else (lambda x: x)
@@ -197,25 +109,32 @@ def amp_decode(
     def step(state, t):
         beta, z, tau2_prev, done, iters = state
         beta = c_bml(beta)
-        bnorm2 = jnp.sum(beta * beta, axis=-1)     # psum over section shards
-        coef = (P - bnorm2 / n) / tau2_prev                     # 0 at t=0 (inf)
-        if n_space:
-            # zN is section-shardable like beta (same coefficient layout),
-            # so section sharding needs no residual all-gather at all.
-            z_new = c_bml(op.resid_n(yN, beta, z, coef[:, None]))
-        else:
-            z_new = c_bn(y - op.Ax(beta) + z * coef[:, None])
-        if tau2_schedule is None:
-            tau2 = jnp.sum(z_new * z_new, axis=-1) / n          # (B,)
-        else:
-            tau2 = jnp.full((B,), tau2_schedule[t], dtype=y.dtype)
-        adj = op.adj_n(z_new) if n_space else op.Ay(z_new)
-        s_new = c_blm((beta + adj).reshape(B, L, M))
-        beta3, _ = dn(s_new, tau2, sq_npl)
-        beta3 = apply_pin(beta3)
+        # named scopes label the profiler's device events by stage
+        # (scripts/stage_profile.py)
+        with jax.named_scope("onsager_denoise"):
+            bnorm2 = jnp.sum(beta * beta, axis=-1)  # psum over section shards
+            coef = (P - bnorm2 / n) / tau2_prev         # 0 at t=0 (inf)
+        with jax.named_scope("amp_transform"):
+            if n_space:
+                # zN is section-shardable like beta (same coefficient
+                # layout), so section sharding needs no residual all-gather.
+                z_new = c_bml(op.resid_n(yN, beta, z, coef[:, None]))
+            else:
+                z_new = c_bn(y - op.Ax(beta) + z * coef[:, None])
+        with jax.named_scope("onsager_denoise"):
+            if tau2_schedule is None:
+                tau2 = jnp.sum(z_new * z_new, axis=-1) / n      # (B,)
+            else:
+                tau2 = jnp.full((B,), tau2_schedule[t], dtype=y.dtype)
+        with jax.named_scope("amp_transform"):
+            adj = op.adj_n(z_new) if n_space else op.Ay(z_new)
+        with jax.named_scope("onsager_denoise"):
+            s_new = c_blm((beta + adj).reshape(B, L, M))
+            beta3, _ = denoise(s_new, tau2, sq_npl)
+            beta3 = apply_pin(beta3)
         # schedule mode has no online tau to compare (a scheduled tau2
-        # plateau would freeze every codeword at once); mirror the fused
-        # kernels' gate so the xla and fused routes never diverge here.
+        # plateau would freeze every codeword at once), so it never stops
+        # early.
         if tau2_schedule is None:
             conv = jnp.abs(tau2 - tau2_prev) < tol * tau2
         else:

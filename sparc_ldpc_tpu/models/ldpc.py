@@ -2,7 +2,7 @@
 
 Construction and GF(2) systematization are host-side (design.ldpc_codes);
 this module ships the results to the device: the generator as an int8 matrix
-(encode = int matmul mod 2, MXU-friendly) and the padded BP adjacency
+(encode = int matmul mod 2) and the padded BP adjacency
 tables (ops.bp).
 """
 
@@ -19,7 +19,6 @@ from ..config import LdpcConfig
 from ..design.ldpc_codes import LdpcCode, adjacency, build_code, qc_structure
 from ..ops.bp import BpResult, BpTables, bp_decode
 from ..ops.bp_qc import QcBpTables, bp_decode_qc
-from ..ops.bp_qc_pallas import bp_decode_qc_pallas
 
 
 @dataclass(frozen=True)
@@ -31,14 +30,12 @@ class LdpcModel:
     tables: BpTables
     msg_pos: jax.Array              # (k,) message positions in codeword
     qc_tables: Optional[QcBpTables] = None
-    # static base-matrix shifts (hashable) for the Pallas QC kernel
-    qc_shifts: Optional[tuple] = None
 
     @staticmethod
     def build(cfg: LdpcConfig) -> "LdpcModel":
         code = build_code(cfg)
         qc = qc_structure(cfg)
-        if cfg.engine in ("qc", "qc_xla") and qc is None:
+        if cfg.engine == "qc" and qc is None:
             raise ValueError(f"bp engine {cfg.engine!r} needs a QC code, "
                              f"got kind={cfg.kind!r}")
         return LdpcModel(
@@ -47,9 +44,7 @@ class LdpcModel:
             H=jnp.asarray(code.H, dtype=jnp.int8),
             tables=BpTables.build(code),
             msg_pos=jnp.asarray(code.message_positions, dtype=jnp.int32),
-            qc_tables=QcBpTables.build(*qc) if qc is not None else None,
-            qc_shifts=(tuple(tuple(int(s) for s in row) for row in qc[0])
-                       if qc is not None else None))
+            qc_tables=QcBpTables.build(*qc) if qc is not None else None)
 
     @property
     def k(self) -> int:
@@ -66,23 +61,9 @@ class LdpcModel:
         return (prod & 1).astype(jnp.int32)
 
     def decode(self, llr: jax.Array, iters: Optional[int] = None) -> BpResult:
-        use_qc = (self.cfg.engine in ("qc", "qc_xla")
+        use_qc = (self.cfg.engine == "qc"
                   or (self.cfg.engine == "auto" and self.qc_tables is not None))
         if use_qc:
-            # engine="qc" layered minsum/oms on a TPU backend rides the
-            # whole-decode-in-VMEM Pallas kernel (round 5) — outputs are
-            # BITWISE equal to the XLA graph (tests/test_ldpc_qc.py), so
-            # this is an implementation choice, not a route change;
-            # engine="qc_xla" pins the XLA graph for A/B.
-            if (self.cfg.engine == "qc" and self.cfg.schedule == "layered"
-                    and self.cfg.decoder in ("minsum", "oms")
-                    and self.qc_shifts is not None
-                    and jax.default_backend() != "cpu"):
-                return bp_decode_qc_pallas(
-                    llr, self.qc_shifts, self.qc_tables.Z,
-                    iters=iters or self.cfg.bp_iters,
-                    method=self.cfg.decoder, alpha=self.cfg.alpha,
-                    beta=self.cfg.beta, clip=self.cfg.llr_clip)
             return bp_decode_qc(llr, self.qc_tables,
                                 iters=iters or self.cfg.bp_iters,
                                 method=self.cfg.decoder, alpha=self.cfg.alpha,

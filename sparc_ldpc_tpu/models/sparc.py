@@ -44,12 +44,11 @@ class SparcModel:
     sq_npl: jax.Array                   # (L,) sqrt(n P_l) device constant
     op: BatchedOperator
     tau2_schedule: Optional[jax.Array]  # (T,) when cfg.tau_mode == "se"
-    use_pallas: bool = False
     policy: object = None               # parallel.mesh.ShardingPolicy | None
 
     @staticmethod
     def build(cfg: SparcConfig, ebno_db: float,
-              use_pallas: bool = False, policy=None) -> "SparcModel":
+              policy=None) -> "SparcModel":
         sigma2 = cfg.sigma2(ebno_db)
         p = power_allocation(cfg.power_alloc, cfg.L, cfg.P, sigma2,
                              cfg.n, cfg.M, cfg.pa_a, cfg.pa_f)
@@ -70,8 +69,8 @@ class SparcModel:
         return SparcModel(
             cfg=cfg, ebno_db=ebno_db, sigma2=sigma2, p_alloc=p,
             sq_npl=jnp.asarray(np.sqrt(cfg.n * p), dtype=jnp.float32),
-            op=make_operator(cfg, use_pallas=use_pallas, policy=policy),
-            tau2_schedule=sched, use_pallas=use_pallas, policy=policy)
+            op=make_operator(cfg, policy=policy),
+            tau2_schedule=sched, policy=policy)
 
     # ------------------------------------------------------------- encode
 
@@ -104,13 +103,8 @@ class SparcModel:
             y, self.op, self.sq_npl if sq_npl is None else sq_npl,
             self.cfg.P, self.cfg.n,
             T=T or self.cfg.amp_iters, tol=self.cfg.amp_tol,
-            tau2_schedule=self.tau2_schedule,
-            use_pallas_denoiser=self.use_pallas, policy=self.policy,
-            residual_space=self.cfg.amp_residual_space,
-            fused=self.cfg.amp_kernel.startswith("fused"),
-            fused_split=True if self.cfg.amp_kernel == "fused_split" else None,
-            fused_form="slab" if self.cfg.amp_kernel == "fused_slab" else None,
-            **amp_kw)
+            tau2_schedule=self.tau2_schedule, policy=self.policy,
+            residual_space=self.cfg.amp_residual_space, **amp_kw)
 
     def decode_bits(self, y: jax.Array) -> jax.Array:
         res = self.decode(y)
@@ -140,77 +134,7 @@ class SparcModel:
         ARGUMENTS instead of closure constants, so one jit compilation
         serves every Eb/N0 point of a sweep (see SparcSweep; only sq_npl
         and sigma vary across points for online-tau configs)."""
-        batch = tkeys.shape[0]
-        mkeys = jax.vmap(lambda k: jax.random.fold_in(k, 0))(tkeys)
-        nkeys = jax.vmap(lambda k: jax.random.fold_in(k, 1))(tkeys)
-        bits = jax.vmap(
-            lambda k: jax.random.bernoulli(k, 0.5, (self.cfg.k_bits,))
-        )(mkeys).astype(jnp.int32)
-        idx_true = bits_to_indices(bits, self.cfg.logM)
-        fused = self.cfg.amp_kernel.startswith("fused")
-        # In-kernel encode (ops/amp_kernel.py round 3): on the fused
-        # single-device AND pure-DP-sharded paths the kernel synthesizes
-        # x = A beta0 itself from idx_true, so the XLA side only
-        # generates bits + noise — the (B, L, M) one-hot materialization
-        # and the HBM-streaming encode FWHT (measured 24% of block wall
-        # at the headline shapes) disappear.  Same math, same RNG draws;
-        # x differs from the XLA encode only in bf16 rounding
-        # association.  Section-sharded policies are the one exclusion
-        # (a codeword's one-hot spans shards — round-3 VERDICT
-        # missing #3 closed for every other mesh policy).
-        in_kernel_enc = (fused and self.cfg.amp_encode_in_kernel
-                         and (self.policy is None
-                              or self.policy.section_shards == 1)
-                         and self.op.mask is not None
-                         and self.cfg.L <= 4096 and self.cfg.M <= 1024)
-        # In-kernel noise (round 4, amp_noise_in_kernel): the kernel draws
-        # the masked AWGN itself from per-codeword pltpu PRNG seeds, so
-        # the XLA side generates NOTHING per trial beyond the message bits
-        # — the (B, n) normal draw and the (B, L, M) N-space embed (14.7%
-        # of headline block wall, scripts/noise_probe.py) disappear.
-        # Split form only; needs a real TPU (no interpreter PRNG).
-        # Distribution-identical but a different stream than jax.random —
-        # decisions are statistically, not bitwise, comparable across the
-        # two noise routes (TPU BER A/B in docs/PERF.md round 4).
-        in_kernel_noise = (
-            in_kernel_enc and self.cfg.amp_noise_in_kernel
-            and (self.cfg.amp_kernel == "fused_split"
-                 or (self.cfg.amp_kernel == "fused" and self.cfg.L > 1024))
-            and jax.default_backend() != "cpu")
-        noise_kw = {}
-        if in_kernel_noise:
-            # same per-trial fold position as the XLA noise key (1); the
-            # two threefry words become the pltpu PRNG seed
-            seeds = jax.vmap(jax.random.key_data)(nkeys).reshape(batch, 2)
-            y = None
-            enc_idx = idx_true
-            noise_kw = dict(noise_seed=seeds, noise_sigma=sigma)
-        elif in_kernel_enc:
-            noise = jax.vmap(
-                lambda k: jax.random.normal(k, (self.cfg.n,),
-                                            dtype=jnp.float32))(nkeys)
-            y = noise * sigma
-            enc_idx = idx_true
-        else:
-            noise = jax.vmap(
-                lambda k: jax.random.normal(k, (self.cfg.n,),
-                                            dtype=jnp.float32))(nkeys)
-            onehot = jax.nn.one_hot(idx_true, self.cfg.M,
-                                    dtype=jnp.float32)
-            beta = (sq_npl[None, :, None] * onehot).reshape(
-                batch, self.cfg.ML)
-            y = self.op.Ax(beta) + noise * sigma
-            enc_idx = None
-        res = amp_decode(
-            y, self.op, sq_npl, self.cfg.P, self.cfg.n,
-            T=self.cfg.amp_iters, tol=self.cfg.amp_tol,
-            tau2_schedule=self.tau2_schedule,
-            use_pallas_denoiser=self.use_pallas, policy=self.policy,
-            residual_space=self.cfg.amp_residual_space,
-            fused=fused,
-            fused_split=True if self.cfg.amp_kernel == "fused_split" else None,
-            fused_form="slab" if self.cfg.amp_kernel == "fused_slab" else None,
-            encode_idx=enc_idx, **noise_kw)
+        bits, idx_true, res = self.decode_block(tkeys, sq_npl, sigma)
         idx_hat = hard_indices(res.beta)
         bits_hat = indices_to_bits(idx_hat, self.cfg.logM)
         bit_errors = jnp.sum(bits != bits_hat, axis=-1)         # (B,)
@@ -224,10 +148,28 @@ class SparcModel:
             bit_errors_sq=jnp.sum(bit_errors.astype(jnp.float32) ** 2),
             frame_errors=jnp.sum(bit_errors > 0),
             section_errors=jnp.sum(section_errors),
-            trials=jnp.asarray(batch, dtype=jnp.int32),
+            trials=jnp.asarray(tkeys.shape[0], dtype=jnp.int32),
             iters_sum=jnp.sum(res.iters),
             tau2_final=jnp.mean(res.tau2_trace[-1]),
         )
+
+    def decode_block(self, tkeys: jax.Array, sq_npl: jax.Array,
+                     sigma: jax.Array):
+        """(bits, true section indices, AmpResult) of the block that
+        run_block_params counts: the same trials, decoded the same way."""
+        with jax.named_scope("trial_gen"):
+            mkeys = jax.vmap(lambda k: jax.random.fold_in(k, 0))(tkeys)
+            nkeys = jax.vmap(lambda k: jax.random.fold_in(k, 1))(tkeys)
+            bits = jax.vmap(
+                lambda k: jax.random.bernoulli(k, 0.5, (self.cfg.k_bits,))
+            )(mkeys).astype(jnp.int32)
+            idx_true = bits_to_indices(bits, self.cfg.logM)
+            noise = jax.vmap(
+                lambda k: jax.random.normal(k, (self.cfg.n,),
+                                            dtype=jnp.float32))(nkeys)
+            y = (self.op.Ax(self.build_beta(idx_true, sq_npl))
+                 + noise * sigma)
+        return bits, idx_true, self.decode(y, sq_npl=sq_npl)
 
 
 class SparcSweep:
@@ -239,10 +181,8 @@ class SparcSweep:
     point-dependent and static-shaped; those fall back to per-point jits).
     """
 
-    def __init__(self, cfg: SparcConfig, use_pallas: bool = False,
-                 policy=None):
+    def __init__(self, cfg: SparcConfig, policy=None):
         self.cfg = cfg
-        self.use_pallas = use_pallas
         self.policy = policy
         # jit cache keyed by the effective iteration count: amp_iters_auto
         # gives each point its own SE-derived T (a static shape), so points
@@ -256,15 +196,19 @@ class SparcSweep:
             self.cfg = model.cfg
 
         def run_block(self, tkeys):
-            return self._sweep._jitted[self.cfg.amp_iters](
-                tkeys, self.model.sq_npl,
-                jnp.float32(math.sqrt(self.model.sigma2)))
+            (_, fn, args), = self.programs(tkeys)
+            return fn(*args)
         run_block._prejitted = True  # campaign must not re-jit
 
+        def programs(self, tkeys):
+            """[(stage, jitted fn, args)] of one block (one stage here),
+            for AOT compilation and profiling."""
+            return [("block", self._sweep._jitted[self.cfg.amp_iters],
+                     (tkeys, self.model.sq_npl,
+                      jnp.float32(math.sqrt(self.model.sigma2))))]
+
     def model_for_point(self, ebno_db: float) -> "SparcSweep._Point":
-        model = SparcModel.build(self.cfg, ebno_db,
-                                 use_pallas=self.use_pallas,
-                                 policy=self.policy)
+        model = SparcModel.build(self.cfg, ebno_db, policy=self.policy)
         if self.cfg.tau_mode != "online":
             return model          # point-specific schedule: per-point jit
         t_eff = model.cfg.amp_iters

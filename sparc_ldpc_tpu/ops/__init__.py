@@ -1,11 +1,11 @@
-"""L1/L2 TPU kernels and matrix-free operators (SURVEY.md §1).
+"""L1/L2 ops and matrix-free operators (SURVEY.md §1), plain jnp/lax.
 
-- fwht:      MXU-native fast Walsh-Hadamard transform (mode contractions)
-             + Pallas fused kernel.
+- fwht:      fast Walsh-Hadamard transform as Kronecker mode contractions
+             (batched matmuls).
 - dct:       orthonormal DCT-II/III pair (XLA FFT path).
 - operators: batched forward/adjoint matvec pairs (dense / partial-Hadamard
              / subsampled-DCT), derived from design.codebook plans.
-- denoiser:  sectionwise posterior-mean softmax (Pallas + jnp reference).
+- denoiser:  sectionwise posterior-mean softmax.
 - bp:        padded edge-array LDPC belief propagation.
 """
 

@@ -4,23 +4,21 @@
 
 Numerics (SURVEY.md §7 hard-part 2): the softmax argument scales like
 sqrt(n P_l)*s/tau2 which overflows f32 quickly as tau2 shrinks — always
-max-subtract per section.  Implemented as a fused jnp path (XLA fuses the
-elementwise chain into one VPU pass) and a Pallas kernel that tiles (L, M)
-sections into VMEM; both are exactly the same math and are parity-tested.
+max-subtract per section.  Plain jnp: XLA fuses the elementwise chain and
+the two per-section reductions into a few kernels.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 
 def denoise(s: jax.Array, tau2: jax.Array, sq_npl: jax.Array
             ) -> Tuple[jax.Array, jax.Array]:
-    """jnp reference path.
+    """Sectionwise softmax denoiser.
 
     Args:
       s: (B, L, M) effective observation beta + A^T z.
@@ -35,61 +33,3 @@ def denoise(s: jax.Array, tau2: jax.Array, sq_npl: jax.Array
     e = jnp.exp(a)
     post = e / jnp.sum(e, axis=-1, keepdims=True)
     return sq_npl[None, :, None] * post, post
-
-
-def _denoise_kernel(s_ref, tau2_ref, sq_ref, beta_ref, post_ref):
-    """Pallas kernel: one (1, L_tile, M) block per program.
-
-    tau2_ref holds the full (B, 1) scalar array in SMEM (Mosaic rejects
-    sub-tile 2D blocks); each program picks its batch row by program_id.
-    """
-    from jax.experimental import pallas as pl
-    tau2 = tau2_ref[pl.program_id(0), 0]
-    sq = sq_ref[:]                              # (L_tile, 1)
-    a = sq * s_ref[0] / tau2                    # (L_tile, M)
-    a = a - jnp.max(a, axis=-1, keepdims=True)
-    e = jnp.exp(a)
-    post = e / jnp.sum(e, axis=-1, keepdims=True)
-    post_ref[0] = post
-    beta_ref[0] = sq * post
-
-
-def denoise_pallas(s: jax.Array, tau2: jax.Array, sq_npl: jax.Array,
-                   l_tile: int = 256, interpret: bool = False
-                   ) -> Tuple[jax.Array, jax.Array]:
-    """Pallas path: grid (B, L/l_tile); per-block VMEM softmax.
-
-    Matches `denoise` to f32 rounding; tested in tests/test_ops.py.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, L, M = s.shape
-    l_tile = min(l_tile, L)
-    if L % l_tile:
-        return denoise(s, tau2, sq_npl)
-    sq2d = sq_npl.reshape(L, 1)
-    tau2d = tau2.reshape(B, 1)        # SMEM scalars must be 2D (1,1) blocks
-    grid = (B, L // l_tile)
-    kwargs = dict(
-        out_shape=(jax.ShapeDtypeStruct((B, L, M), s.dtype),
-                   jax.ShapeDtypeStruct((B, L, M), s.dtype)),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, l_tile, M), lambda b, l: (b, l, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, 1), lambda b, l: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((l_tile, 1), lambda b, l: (l, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, l_tile, M), lambda b, l: (b, l, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, l_tile, M), lambda b, l: (b, l, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        interpret=interpret,
-    )
-    beta, post = pl.pallas_call(_denoise_kernel, **kwargs)(s, tau2d, sq2d)
-    return beta, post

@@ -6,9 +6,9 @@ adjoint matvec pair, batched over codewords:
     Ax: (B, ML) -> (B, n)       Ay: (B, n) -> (B, ML)
 
 Operators are built from host-side plans (design.codebook) so the oracle and
-TPU paths use *identical* index sets; only the transform backend differs.
+JAX paths use *identical* index sets; only the transform backend differs.
 
-TPU-first layout decisions (SURVEY.md §5 long-context analog):
+Layout decisions (SURVEY.md §5 long-context analog):
   - columns are the first ML natural Hadamard columns — the embedding
     beta -> u is a zero-pad (usually the identity, since ML is a power of
     two), so the section ('model') sharding of beta carries straight into
@@ -31,7 +31,7 @@ import numpy as np
 
 from ..config import SparcConfig
 from ..design.codebook import hadamard_plan, dct_plan
-from .fwht import fwht_from_rev, fwht_mxu, fwht_pallas, fwht_to_rev, rev_indices
+from .fwht import fwht_from_rev, fwht_mxu, fwht_to_rev, rev_indices
 
 
 class BatchedOperator(NamedTuple):
@@ -55,10 +55,6 @@ class BatchedOperator(NamedTuple):
     embed_y: Optional[Callable[[jax.Array], jax.Array]] = None
     resid_n: Optional[Callable] = None
     adj_n: Optional[Callable[[jax.Array], jax.Array]] = None
-    # (N,) 0/1 row-support mask; present only when the operator is eligible
-    # for the fused whole-AMP kernel (ML == N, no column signs) —
-    # ops.amp_kernel.amp_fused.
-    mask: Optional[jax.Array] = None
 
 
 def dense_operator(cfg: SparcConfig) -> BatchedOperator:
@@ -81,9 +77,8 @@ def dense_operator(cfg: SparcConfig) -> BatchedOperator:
     return BatchedOperator(Ax=Ax, Ay=Ay, n=n, ML=ML, N=ML)
 
 
-def hadamard_operator(cfg: SparcConfig, use_pallas: bool = False,
-                      policy=None) -> BatchedOperator:
-    """Matrix-free partial-Hadamard operator (App. A.3), MXU transform.
+def hadamard_operator(cfg: SparcConfig, policy=None) -> BatchedOperator:
+    """Matrix-free partial-Hadamard operator (App. A.3), matmul transform.
 
     Transpose-free scheme (see ops.fwht): the forward transform emits the
     Walsh spectrum in *reversed mode layout* and the adjoint consumes that
@@ -114,23 +109,7 @@ def hadamard_operator(cfg: SparcConfig, use_pallas: bool = False,
         def txf(u):
             return fwht_mxu(u, precision=prec)
 
-    if use_pallas:
-        def Ax(beta):
-            if signs is not None:
-                beta = beta * signs
-            u = beta if ML == N else jnp.pad(beta, ((0, 0), (0, N - ML)))
-            w = fwht_pallas(u)
-            rows = jnp.asarray(plan.rows, dtype=jnp.int32)
-            return jnp.take(w, rows, axis=-1) * inv_sqrt_n
-
-        def Ay(z):
-            rows = jnp.asarray(plan.rows, dtype=jnp.int32)
-            u = jnp.zeros(z.shape[:-1] + (N,), dtype=z.dtype)
-            u = u.at[..., rows].set(z)
-            w = fwht_pallas(u)
-            s = w[..., :ML] * inv_sqrt_n
-            return s * signs if signs is not None else s
-    elif cfg.fwht_scheme == "mxu":
+    if cfg.fwht_scheme == "mxu":
         rows_nat = jnp.asarray(plan.rows, dtype=jnp.int32)
         mask_np = np.zeros(N, dtype=np.float32)
         mask_np[plan.rows] = 1.0
@@ -170,8 +149,7 @@ def hadamard_operator(cfg: SparcConfig, use_pallas: bool = False,
 
         return BatchedOperator(
             Ax=Ax, Ay=Ay, n=n, ML=ML, N=N,
-            embed_y=embed_y, resid_n=resid_n, adj_n=adj_n,
-            mask=mask if (signs is None and ML == N) else None)
+            embed_y=embed_y, resid_n=resid_n, adj_n=adj_n)
     else:
         def Ax(beta):  # (B, ML) -> (B, n)
             if signs is not None:
@@ -220,12 +198,11 @@ def dct_operator(cfg: SparcConfig) -> BatchedOperator:
     return BatchedOperator(Ax=Ax, Ay=Ay, n=n, ML=ML, N=N)
 
 
-def make_operator(cfg: SparcConfig, use_pallas: bool = False,
-                  policy=None) -> BatchedOperator:
+def make_operator(cfg: SparcConfig, policy=None) -> BatchedOperator:
     if cfg.op_kind == "dense":
         return dense_operator(cfg)
     if cfg.op_kind == "hadamard":
-        return hadamard_operator(cfg, use_pallas=use_pallas, policy=policy)
+        return hadamard_operator(cfg, policy=policy)
     if cfg.op_kind == "dct":
         return dct_operator(cfg)
     raise ValueError(cfg.op_kind)

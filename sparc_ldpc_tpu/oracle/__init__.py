@@ -5,7 +5,7 @@ A from-scratch, independent implementation of the full behavioral contract
 LDPC encode/BP, concatenation.  It plays two roles:
 
 1. Parity oracle — the reference repo mount is empty (SURVEY.md §0), so BER
-   and trajectory parity of the TPU path is judged against this code plus
+   and trajectory parity of the JAX path is judged against this code plus
    state-evolution predictions.
 2. CPU throughput baseline — the >=10x-per-chip target (BASELINE.md) is
    measured against this implementation with the native C++ FWHT

@@ -2,7 +2,7 @@
 
 Implements SURVEY.md Appendix A.1/A.3/A.4/A.5 exactly, independently of the
 JAX path (parity tests compare the two — SURVEY.md §4.1).  Single codeword
-per call; vectorization is the TPU path's job.
+per call; vectorization is the JAX path's job.
 """
 
 from __future__ import annotations

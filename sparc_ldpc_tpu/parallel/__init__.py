@@ -1,8 +1,8 @@
 """L0/L5: device mesh, sharding policy, Monte-Carlo campaign driver.
 
 SURVEY.md §2 #24-25: the reference is single-process; scale-out here is
-TPU-native by construction — jax.distributed + Mesh + NamedSharding + jit
-(GSPMD inserts all collectives; no NCCL/MPI layer exists or is needed).
+jax.distributed + Mesh + NamedSharding + jit (GSPMD inserts all
+collectives, which XLA lowers to NCCL on GPUs; no MPI layer is needed).
 """
 
 from .mesh import ShardingPolicy, make_mesh  # noqa: F401

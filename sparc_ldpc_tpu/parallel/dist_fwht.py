@@ -5,7 +5,7 @@ GSPMD already shards the Kronecker mode contractions automatically (a
 sharded mode becomes local matmuls + collectives).  This module is the
 explicit alternative — the exact structural analog of ring attention for
 sequence length: butterfly *super-stages* across the device axis with
-`ppermute` neighbor exchange, local MXU transforms inside.
+`ppermute` neighbor exchange, local matmul transforms inside.
 
 Math: with the length-N vector split into S contiguous shards (device s
 holds rows [s·N/S, (s+1)·N/S)), Sylvester ordering gives

@@ -1,6 +1,6 @@
 """Message bit <-> section index packing (SURVEY.md §2 #2, App. A.1).
 
-Convention (binding for oracle and TPU paths): each section carries
+Convention (binding for oracle and JAX paths): each section carries
 ``logM`` bits, MSB first.  Section ``l``'s index is
 
     c_l = sum_{b=0}^{logM-1}  bits[l*logM + b] << (logM - 1 - b)

@@ -1,8 +1,9 @@
-"""Artifact provenance (round-2 VERDICT weak #4).
+"""Artifact provenance.
 
 Every persisted results record should carry the preset name, a hash of the
-exact config that produced it, and the source commit, so a reader can tell
-whether an artifact still describes the shipped preset.  Frozen dataclass
+exact config that produced it, the source commit and the device it ran on,
+so a reader can tell whether an artifact still describes the shipped
+preset and where its numbers come from.  Frozen dataclass
 configs have a deterministic repr, so sha1(repr) is a stable fingerprint
 across processes (unlike Python's salted hash()).
 """
@@ -20,50 +21,6 @@ def config_hash(cfg: object) -> str:
     return hashlib.sha1(repr(cfg).encode()).hexdigest()[:12]
 
 
-# Config fields added AFTER artifacts were generated whose default value
-# preserves the prior behavior exactly (the artifact's numbers cannot
-# depend on a flag that did not exist and whose default is "off").  For
-# such fields, an artifact hashed before the field existed still
-# describes the current preset as long as the preset holds the default —
-# config_hashes() therefore also yields the legacy fingerprint with the
-# default-valued field elided.  The legacy repr is REBUILT from the
-# dataclass fields (round-4 ADVICE: a literal repr-fragment replace
-# silently stopped matching on field reordering or a trailing field),
-# so it stays correct under any repr layout the dataclass machinery
-# produces.
-_DEFAULT_PRESERVING = ("amp_noise_in_kernel",)
-
-
-def _repr_without_default_fields(cfg: object, skip: tuple) -> str:
-    """Dataclass repr with `skip` fields elided wherever they hold their
-    declared default (recursing into nested dataclass fields).  Matches
-    the stock dataclass repr format exactly for all other fields."""
-    import dataclasses
-
-    if not dataclasses.is_dataclass(cfg):
-        return repr(cfg)
-    parts = []
-    for f in dataclasses.fields(cfg):
-        if not f.repr:
-            continue
-        v = getattr(cfg, f.name)
-        if f.name in skip and v == f.default:
-            continue
-        vr = (_repr_without_default_fields(v, skip)
-              if dataclasses.is_dataclass(v) else repr(v))
-        parts.append(f"{f.name}={vr}")
-    return f"{type(cfg).__name__}({', '.join(parts)})"
-
-
-def config_hashes(cfg: object) -> set:
-    """Current fingerprint plus legacy fingerprints of reprs that predate
-    default-preserving fields (see _DEFAULT_PRESERVING)."""
-    out = {config_hash(cfg)}
-    legacy = _repr_without_default_fields(cfg, _DEFAULT_PRESERVING)
-    out.add(hashlib.sha1(legacy.encode()).hexdigest()[:12])
-    return out
-
-
 def git_commit() -> Optional[str]:
     """Short HEAD commit of the source tree, or None outside a checkout."""
     try:
@@ -77,8 +34,19 @@ def git_commit() -> Optional[str]:
 
 
 def artifact_meta(preset: str, cfg: object) -> dict:
-    """Provenance fields to merge into every results record."""
-    meta = dict(preset=preset, config_hash=config_hash(cfg))
+    """Provenance fields to merge into every results record: preset,
+    config hash, commit, and the device the numbers came from (platform,
+    device_kind, device count, and the card's name and power limit as
+    nvidia-smi reports them — None off a GPU machine)."""
+    import jax
+
+    from .runtime import gpu_name_power
+
+    dev = jax.devices()[0]
+    meta = dict(preset=preset, config_hash=config_hash(cfg),
+                platform=dev.platform, device_kind=dev.device_kind,
+                device_count=jax.device_count(),
+                power_limit=gpu_name_power())
     commit = git_commit()
     if commit:
         meta["commit"] = commit

@@ -39,7 +39,7 @@ def test_amp_trajectory_parity_vs_oracle(kind, rng):
     T = min(len(tau_o), len(tau_j))
     np.testing.assert_allclose(tau_j[:T], tau_o[:T], rtol=2e-3)
     # posteriors match (the s statistic itself is not materialized on the
-    # TPU path — posteriors/scores/beta are its sufficient equivalents)
+    # JAX path — posteriors/scores/beta are its sufficient equivalents)
     np.testing.assert_allclose(np.asarray(jres.posteriors[0]),
                                ores.posteriors, rtol=5e-3, atol=1e-5)
     # identical hard decisions

@@ -1,6 +1,6 @@
-"""Deep BER-parity artifact check (SURVEY.md §4.3, round-1 VERDICT
-missing #4): oracle (NumPy float64, native FWHT) vs TPU (fused bf16
-kernel) BER within joint 95% confidence at every persisted sweep point.
+"""Deep BER-parity artifact check (SURVEY.md §4.3): oracle (NumPy
+float64, native FWHT) vs GPU (the shipped XLA route on the card) BER
+within joint 95% confidence at every persisted sweep point.
 
 Reads the artifact produced by scripts/ber_parity.py from results/ —
 it does NOT recompute anything (the oracle leg costs hours of CPU); runs
@@ -27,86 +27,52 @@ def _points():
         for ebno in bp.GRIDS[preset]:
             o = [r for r in recs if r["kind"] == "oracle"
                  and abs(r["ebno_db"] - ebno) < 1e-9]
-            t = [r for r in recs if r["kind"] == "tpu"
+            t = [r for r in recs if r["kind"] == "gpu"
                  and abs(r["ebno_db"] - ebno) < 1e-9]
             pts.append((preset, ebno, o[-1] if o else None,
                         t[-1] if t else None))
     return pts
 
 
-@pytest.mark.parametrize("preset,ebno,oracle,tpu",
+@pytest.mark.parametrize("preset,ebno,oracle,gpu",
                          _points(),
                          ids=[f"{p}-{e}dB" for p, e, _, _ in _points()])
-def test_ber_ci_overlap(preset, ebno, oracle, tpu):
-    if oracle is None or tpu is None:
+def test_ber_ci_overlap(preset, ebno, oracle, gpu):
+    if oracle is None or gpu is None:
         pytest.skip("artifact leg not built yet (scripts/ber_parity.py)")
-    assert tpu["trials"] >= 10_000
-    # oracle-leg trials floor (round-3 VERDICT weak #1/#6): a regenerated
+    assert gpu["trials"] >= 10_000
+    # oracle-leg trials floor: a regenerated
     # artifact must not silently thin out below the per-preset floor the
     # sufficiency arithmetic was done for (ber_parity.ORACLE_TRIALS_FLOOR)
     assert oracle["trials"] >= bp.ORACLE_TRIALS_FLOOR[preset], (
         f"{preset}: oracle leg has {oracle['trials']} trials < floor "
         f"{bp.ORACLE_TRIALS_FLOOR[preset]}")
-    gap = abs(oracle["ber"] - tpu["ber"])
-    # joint 95% CI with a MEASURED precision-sensitivity relative floor
-    # (bp.REL_FLOOR: 1% default from the plain_small plateau control;
-    # 15% for concat_small from its round-4 f32-XLA control legs — f32
-    # anywhere shifts the concat mid-waterfall BER ~12% relative vs
-    # float64 while the f32 control matches the bf16 kernel to 0.5%).
-    # The tight same-precision check is test_control_vs_tpu below.
-    bound = max(math.hypot(bp.ci_ber(oracle), bp.ci_ber(tpu)),
+    gap = abs(oracle["ber"] - gpu["ber"])
+    # joint 95% CI with a precision-sensitivity relative floor
+    # (bp.REL_FLOOR: 1% default; 15% for the concat chains, whose
+    # mid-waterfall BER moves ~12% relative between f32 and float64).
+    # The tight same-platform check is test_control_vs_gpu below.
+    bound = max(math.hypot(bp.ci_ber(oracle), bp.ci_ber(gpu)),
                 bp.REL_FLOOR.get(preset, 0.01)
-                * max(oracle["ber"], tpu["ber"]))
+                * max(oracle["ber"], gpu["ber"]))
     assert gap <= bound, (
-        f"{preset} @ {ebno} dB: oracle BER {oracle['ber']:.4e} vs TPU "
-        f"{tpu['ber']:.4e}, |gap| {gap:.3e} > joint 95% {bound:.3e}")
-
-
-@pytest.mark.parametrize("preset", sorted(bp.NOISEK_PRESETS))
-def test_noisek_stream_anchored(preset):
-    """The in-kernel pltpu-PRNG/Box-Muller noise stream — the one the
-    headline bench and the shipped fused presets ride since round 5 —
-    must carry its own CI-enforced oracle anchor (round-4 VERDICT
-    missing #1).  REQUIRED, not skipped: a wiped or regenerated artifact
-    without the kind="tpu_noisek" leg fails loudly, so the driver BENCH
-    configuration can never silently lose its float64 anchor again."""
-    recs = bp.load_records(preset)
-    for ebno in bp.GRIDS[preset]:
-        o = [r for r in recs if r["kind"] == "oracle"
-             and abs(r["ebno_db"] - ebno) < 1e-9]
-        nk = [r for r in recs if r["kind"] == "tpu_noisek"
-              and abs(r["ebno_db"] - ebno) < 1e-9]
-        assert o, f"{preset} @ {ebno}: oracle leg missing"
-        assert nk, (f"{preset} @ {ebno}: tpu_noisek leg missing — "
-                    f"scripts/ber_parity.py tpu --noisek --preset {preset}")
-        o, nk = o[-1], nk[-1]
-        assert nk["trials"] >= 10_000
-        assert nk.get("noise_in_kernel") is True, nk
-        assert o["trials"] >= bp.ORACLE_TRIALS_FLOOR[preset]
-        gap = abs(o["ber"] - nk["ber"])
-        bound = max(math.hypot(bp.ci_ber(o), bp.ci_ber(nk)),
-                    bp.REL_FLOOR.get(preset, 0.01)
-                    * max(o["ber"], nk["ber"]))
-        assert gap <= bound, (
-            f"{preset} @ {ebno} dB (in-kernel noise): oracle BER "
-            f"{o['ber']:.4e} vs TPU {nk['ber']:.4e}, |gap| {gap:.3e} > "
-            f"joint 95% {bound:.3e}")
+        f"{preset} @ {ebno} dB: oracle BER {oracle['ber']:.4e} vs GPU "
+        f"{gpu['ber']:.4e}, |gap| {gap:.3e} > joint 95% {bound:.3e}")
 
 
 def test_control_leg_required_for_rel_floor_presets():
     """REL_FLOOR presets lean on their f32-XLA control legs to justify
-    the widened oracle bound — so wherever an oracle+tpu pair exists at
+    the widened oracle bound — so wherever an oracle+gpu pair exists at
     a REL_FLOOR preset's grid point, the control leg MUST exist too
-    (round-4 ADVICE medium: without this, a regenerated artifact that
-    drops the control leg would silently leave concat anchored only at
-    the 15% floor)."""
+    (without it, a regenerated artifact that drops the control leg would
+    silently leave concat anchored only at the 15% floor)."""
     checked = 0
     for preset in sorted(bp.REL_FLOOR):
         recs = bp.load_records(preset)
         for ebno in bp.GRIDS[preset]:
             o = [r for r in recs if r["kind"] == "oracle"
                  and abs(r["ebno_db"] - ebno) < 1e-9]
-            t = [r for r in recs if r["kind"] == "tpu"
+            t = [r for r in recs if r["kind"] == "gpu"
                  and abs(r["ebno_db"] - ebno) < 1e-9]
             if not (o and t):
                 continue      # artifact still being built (point-first)
@@ -114,27 +80,26 @@ def test_control_leg_required_for_rel_floor_presets():
                  and abs(r["ebno_db"] - ebno) < 1e-9]
             assert c, (
                 f"{preset} @ {ebno}: control_f32xla leg missing — "
-                f"scripts/concat_f32_control.py {preset}")
+                f"scripts/ber_parity.py gpu --control --preset {preset}")
             checked += 1
     if not checked:
         pytest.skip("no completed REL_FLOOR points yet")
 
 
-def test_control_vs_tpu_within_ci():
-    """Same-precision implementation check: wherever an f32-XLA control
-    leg exists (scripts/concat_f32_control.py — XLA kernels, "highest"
-    transforms, no bf16/Pallas), the production bf16 fused route must sit
-    on it within the joint 95% CI at a 2% relative floor.  Precision
-    sensitivity cancels between the two on-chip f32-family routes, so
-    this stays tight where the oracle comparison carries the measured
-    f64-sensitivity floor."""
+def test_control_vs_gpu_within_ci():
+    """Same-platform implementation check: wherever an f32 control leg
+    exists (scripts/ber_parity.py gpu --control: every transform at
+    "highest", no bf16), the shipped route must sit on it within the
+    joint 95% CI at a 2% relative floor.  Precision sensitivity mostly
+    cancels between the two on-card routes, so this stays tight where the
+    oracle comparison carries the f64-sensitivity floor."""
     checked = 0
     for preset in bp.GRIDS:
         recs = bp.load_records(preset)
         for ebno in bp.GRIDS[preset]:
             c = [r for r in recs if r["kind"] == "control_f32xla"
                  and abs(r["ebno_db"] - ebno) < 1e-9]
-            t = [r for r in recs if r["kind"] == "tpu"
+            t = [r for r in recs if r["kind"] == "gpu"
                  and abs(r["ebno_db"] - ebno) < 1e-9]
             if not (c and t):
                 continue
@@ -148,14 +113,14 @@ def test_control_vs_tpu_within_ci():
         pytest.skip("no control legs in the artifacts yet")
 
 
-def test_se_tracks_tpu_ser():
+def test_se_tracks_gpu_ser():
     """tau2-based SE section-error prediction within 10% of the measured
-    TPU SER wherever AMP converges to the SE fixed point (pa_l1024 grid;
+    GPU SER wherever AMP converges to the SE fixed point (pa_l1024 grid;
     the flat-PA plain_small waterfall points are finite-L dominated and
     SE is knowingly optimistic there — not asserted)."""
     recs = bp.load_records("pa_l1024")
     for ebno in bp.GRIDS["pa_l1024"]:
-        t = [r for r in recs if r["kind"] == "tpu"
+        t = [r for r in recs if r["kind"] == "gpu"
              and abs(r["ebno_db"] - ebno) < 1e-9]
         s = [r for r in recs if r["kind"] == "se"
              and abs(r["ebno_db"] - ebno) < 1e-9]

@@ -3,7 +3,7 @@
 The transform here is the 'long-context analog' (SURVEY.md §5): three
 128-sized Kronecker factors, no dense matrix anywhere.  Kept small-batch /
 few-iteration so the CPU CI stays fast; the full-scale path is exercised on
-TPU by bench.py and scripts/.
+the GPU by chip_smoke.py, bench.py and scripts/.
 """
 
 import numpy as np

@@ -123,11 +123,10 @@ def test_cli_se_smoke():
 
 
 def test_se_converged_iters_and_auto_budget():
-    """SE-derived per-point iteration budget (round-1 VERDICT item 8).
+    """SE-derived per-point iteration budget.
 
     At the flagship operating point SE plateaus at t=19 (tol 1e-4), so the
-    auto budget is 22 with margin 3 — the value bench.py runs with; on-chip
-    section errors are flat T=20..32 (docs/PERF.md round-2 table).
+    auto budget is 22 with margin 3 — the value bench.py runs with.
     """
     from sparc_ldpc_tpu.design.power import power_allocation
     from sparc_ldpc_tpu.design.se import se_converged_iters

@@ -1,4 +1,4 @@
-"""TPU-path LDPC tests: encoder/BP parity vs oracle, concat pipeline
+"""JAX-path LDPC tests: encoder/BP parity vs oracle, concat pipeline
 (SURVEY.md §4.1, §4.2)."""
 
 import numpy as np
@@ -117,7 +117,7 @@ def test_concat_beats_plain_sparc_in_residual_regime():
 
 def test_concat_end_to_end_parity_vs_oracle(rng):
     """Full-chain independent parity (SURVEY.md §4.1): the oracle concat
-    decoder and the TPU pipeline recover identical user bits from the SAME
+    decoder and the JAX pipeline recover identical user bits from the SAME
     received vector."""
     import numpy as np
     from sparc_ldpc_tpu.oracle.concat import OracleConcat

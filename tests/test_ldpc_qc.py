@@ -80,9 +80,9 @@ def test_layered_message_parity_vs_oracle_twin(method, rng):
     """Row-layered QC BP == the independent float64 NumPy twin
     (oracle.ldpc.bp_decode_layered): same decisions, ok flags, early-stop
     iteration counts, and message-exact posteriors — the message-level
-    anchor for the schedule the shipped concat presets decode with
-    (round-3 VERDICT missing #1).  The twin routes messages with np.roll
-    permutations, the TPU engine with static Z-gather tensors; layer
+    anchor for the schedule the shipped concat presets decode with.
+    The twin routes messages with np.roll
+    permutations, the JAX engine with static Z-gather tensors; layer
     ordering bugs (stale totals, wrong-direction shifts, missed zero-block
     clip-through) would break iteration counts or posteriors here."""
     import jax
@@ -197,70 +197,29 @@ def test_qc_base_file_roundtrip(tmp_path, rng):
     np.testing.assert_array_equal(np.asarray(res.hard), cw)
 
 
-# ---------------------------------------------------------------- pallas
+@pytest.mark.parametrize("path", ["wifi_n648_r12", "qc_n648_r56"])
+def test_shipped_code_f32_engine_matches_oracle_twin(path, rng):
+    """The shipped outer decode (LdpcModel.decode: layered min-sum on the
+    QC engine, f32) against the float64 twin on the same LLRs, for the two
+    standard-structure codes the concat presets ship.  Hard decisions and
+    ok flags must be equal; posteriors agree to 1e-2 absolute: f32
+    rounding (~1e-6 relative per update, values bounded by the +-20 clip)
+    drifts through the layered recursion of a frame that runs all 32
+    iterations — up to 3.4e-3 measured on these codes."""
+    from sparc_ldpc_tpu.oracle.ldpc import bp_decode_layered
 
-def _pallas_vs_xla(cfg, rng, B=6, sigma=0.55, method="minsum", iters=12):
-    from sparc_ldpc_tpu.ops.bp_qc_pallas import bp_decode_qc_pallas
-
-    code, cw, llr = _noisy_llrs(cfg, rng, B=B, sigma=sigma)
+    cfg = LdpcConfig(kind="qc", path=path, engine="qc", schedule="layered",
+                     bp_iters=32)
+    lm = LdpcModel.build(cfg)
+    code, cw, llr = _noisy_llrs(cfg, rng, B=6, sigma=0.6)
+    res = lm.decode(llr)
     shifts, Z = qc_structure(cfg)
-    t = QcBpTables.build(shifts, Z)
-    xla = bp_decode_qc(llr, t, iters=iters, method=method,
-                       schedule="layered", alpha=cfg.alpha, beta=cfg.beta,
-                       clip=cfg.llr_clip)
-    shifts_t = tuple(tuple(int(s) for s in row) for row in shifts)
-    pls = bp_decode_qc_pallas(llr, shifts_t, Z, iters=iters, method=method,
-                              alpha=cfg.alpha, beta=cfg.beta,
-                              clip=cfg.llr_clip, interpret=True)
-    return xla, pls
-
-
-@pytest.mark.parametrize("method", ["minsum", "oms"])
-def test_pallas_layered_bitwise_vs_xla_engine(method, rng):
-    """The whole-decode-in-VMEM Pallas kernel (ops/bp_qc_pallas.py) must
-    be BITWISE equal to the XLA layered qc engine — hard decisions, ok
-    flags, per-codeword iteration counts, AND f32 posteriors.  This
-    equality is what licenses models/ldpc.py to auto-route engine="qc"
-    layered decodes to the kernel on TPU backends without changing any
-    artifact's meaning (min/compare/mul arithmetic only; the kernel's
-    sequential two-min recurrence equals the argmin/one-hot exclusive
-    min for every tie pattern)."""
-    xla, pls = _pallas_vs_xla(LCFG, rng, method=method)
-    np.testing.assert_array_equal(np.asarray(pls.hard),
-                                  np.asarray(xla.hard))
-    np.testing.assert_array_equal(np.asarray(pls.ok), np.asarray(xla.ok))
-    np.testing.assert_array_equal(np.asarray(pls.iters),
-                                  np.asarray(xla.iters))
-    np.testing.assert_array_equal(np.asarray(pls.posterior),
-                                  np.asarray(xla.posterior))
-
-
-def test_pallas_layered_bitwise_wifi_code(rng):
-    """Same bitwise contract on the 802.11n n=648 r1/2 base matrix —
-    J=12 with ~70% inactive blocks, the trace-time-sparsity case (and
-    the shipped concat_wifi outer code)."""
-    cfg = LdpcConfig(kind="qc", path="wifi_n648_r12", engine="qc",
-                     schedule="layered", bp_iters=16)
-    xla, pls = _pallas_vs_xla(cfg, rng, B=4, sigma=0.7, iters=10)
-    np.testing.assert_array_equal(np.asarray(pls.hard),
-                                  np.asarray(xla.hard))
-    np.testing.assert_array_equal(np.asarray(pls.ok), np.asarray(xla.ok))
-    np.testing.assert_array_equal(np.asarray(pls.iters),
-                                  np.asarray(xla.iters))
-    np.testing.assert_array_equal(np.asarray(pls.posterior),
-                                  np.asarray(xla.posterior))
-
-
-def test_pallas_layered_decodes_clean(rng):
-    """Decode success end-to-end on the kernel route (interpret mode):
-    noisy codewords of the rate-5/6 n=648 code all converge and match."""
-    from sparc_ldpc_tpu.ops.bp_qc_pallas import bp_decode_qc_pallas
-
-    cfg = LdpcConfig(kind="qc", path="qc_n648_r56", engine="qc",
-                     schedule="layered")
-    code, cw, llr = _noisy_llrs(cfg, rng, B=4, sigma=0.4)
-    shifts, Z = qc_structure(cfg)
-    shifts_t = tuple(tuple(int(s) for s in row) for row in shifts)
-    res = bp_decode_qc_pallas(llr, shifts_t, Z, iters=24, interpret=True)
-    assert np.all(np.asarray(res.ok))
-    np.testing.assert_array_equal(np.asarray(res.hard), cw)
+    for b in range(llr.shape[0]):
+        hard, tot, _ = bp_decode_layered(
+            np.asarray(llr[b], np.float64), code, shifts, Z,
+            iters=cfg.bp_iters, method=cfg.decoder, alpha=cfg.alpha,
+            beta=cfg.beta, clip=cfg.llr_clip)
+        np.testing.assert_array_equal(np.asarray(res.hard[b]), hard)
+        assert bool(res.ok[b]) == (not np.any(code.syndrome(hard)))
+        np.testing.assert_allclose(np.asarray(res.posterior[b]), tot,
+                                   atol=1e-2)

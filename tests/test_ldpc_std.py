@@ -1,6 +1,6 @@
-"""Standard 802.11n QC-LDPC codes (SURVEY.md §2 #16; VERDICT round-1
-missing #2): structural verification of the checked-in base matrices and
-decode tests with both BP engines.
+"""Standard 802.11n QC-LDPC codes (SURVEY.md §2 #16): structural
+verification of the checked-in base matrices and decode tests with both BP
+engines.
 
 Exact shift values cannot be re-fetched in this offline environment (the
 data files document this), so the tests pin the *structural* invariants of
@@ -59,8 +59,7 @@ def test_expanded_code_properties(name):
                                              ("qc", "flooding"),
                                              ("qc", "layered")])
 def test_wifi648_decodes_both_engines(engine, schedule, rng):
-    """A published-standard code decodes cleanly with both BP engines
-    (VERDICT 'done' criterion)."""
+    """A published-standard code decodes cleanly with both BP engines."""
     cfg = LdpcConfig(kind="qc", path="wifi_n648_r12", decoder="minsum",
                      engine=engine, schedule=schedule, bp_iters=48)
     lm = LdpcModel.build(cfg)
@@ -154,8 +153,7 @@ def test_constructed_code_decodes(name, sigma, rng):
 def test_concat_r56_preset_geometry():
     """The high-rate concat preset (constructed rate-5/6 outer code) builds
     with consistent frame geometry: whole codewords, higher user rate than
-    the rate-1/2 wifi preset.  (On-chip decode: 96/96 codewords at 3 dB —
-    docs/PERF.md round 2.)"""
+    the rate-1/2 wifi preset."""
     import jax
 
     from sparc_ldpc_tpu.config import PRESETS

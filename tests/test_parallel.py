@@ -71,192 +71,44 @@ def test_section_sharded_matches_single_device():
     assert got == ref
 
 
-def test_fused_sharded_matches_single_device_fused():
-    """The fused Pallas path composes with sharding (round-2, VERDICT #1):
-    pure-DP (mega-kernel per device) and section-sharded (Pallas tile
-    transform + hypercube ppermute + psum) both reproduce the single-chip
-    fused counters on the same key tree."""
-    cfg = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=12,
-                      amp_tol=0.0, amp_kernel="fused",
-                      transform_precision="bf16")
-    model = SparcModel.build(cfg, ebno_db=5.0)
-    ref = _counters(model)
-    for shards in (1, 2, 4):
-        mesh = make_mesh(section_shards=shards)
-        pol = ShardingPolicy(
-            mesh, section_axis="section" if shards > 1 else None)
-        model_sh = SparcModel.build(cfg, ebno_db=5.0, policy=pol)
-        with jax.sharding.set_mesh(mesh):
-            got = _counters(model_sh, policy=pol)
-        assert got == ref, (shards, got, ref)
-
-
-def test_fused_sharded_pinned_matches_xla():
-    """Pinning composes with the section-sharded fused path (concat
-    feedback pass at scale): decisions match the XLA scan."""
-    from sparc_ldpc_tpu.models.amp import amp_decode, hard_indices
-
-    cfg = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=8,
-                      amp_tol=0.0, transform_precision="bf16")
-    m = SparcModel.build(cfg, ebno_db=5.0)
-    key = jax.random.key(3)
-    B = 4
-    bits = jax.random.bernoulli(jax.random.fold_in(key, 0), 0.5,
-                                (B, cfg.k_bits)).astype(jnp.int32)
-    noise = jax.random.normal(jax.random.fold_in(key, 1), (B, cfg.n))
-    y = m.encode(bits) + noise * np.sqrt(m.sigma2)
-    # realistic decision feedback: pin 40% of sections to their TRUE
-    # indices (random pins create near-tie junk where a bf16 rounding flip
-    # can legitimately change an argmax)
-    from sparc_ldpc_tpu.utils.bits import bits_to_indices
-    pin_mask = jnp.asarray(np.random.default_rng(0).random((B, cfg.L)) < 0.4)
-    pin_idx = bits_to_indices(bits, cfg.logM)
-    pin_oh = jax.nn.one_hot(pin_idx, cfg.M, dtype=jnp.float32)
-    kw = dict(T=cfg.amp_iters, tol=0.0, pinned_onehot=pin_oh,
-              pinned_mask=pin_mask)
-    r_xla = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, **kw)
-    mesh = make_mesh(section_shards=2)
-    pol = ShardingPolicy(mesh)
-    with jax.sharding.set_mesh(mesh):
-        r_sh = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, fused=True,
-                          policy=pol, **kw)
-        got = np.asarray(hard_indices(r_sh.beta))
-    np.testing.assert_array_equal(np.asarray(hard_indices(r_xla.beta)), got)
-    np.testing.assert_allclose(np.asarray(r_sh.tau2_trace),
-                               np.asarray(r_xla.tau2_trace), rtol=2e-2)
-
-
-def test_amp_tol_parity_across_routes():
+@pytest.mark.parametrize("route", ["dp", "s2", "s4", "collective"])
+def test_amp_tol_parity_across_routes(route):
     """amp_tol > 0 has the SAME per-codeword freeze semantics on every
-    route (round-2 VERDICT missing #3): XLA scan, fused mono, fused split,
-    fused slab, fused-sharded pure-DP (S=1) and section-sharded (S=2) all
-    report equal decisions AND equal per-codeword iteration counts — and
-    the counts show the stop actually engaged (iters_sum < cap * batch).
+    mesh route: pure DP over 8 devices, section-sharded at S=2 and S=4
+    (GSPMD mode contractions) and S=2 with the hand ppermute FWHT
+    (fwht_dist="collective") all report the single-device decisions AND
+    per-codeword iteration counts — and the counts show the stop actually
+    engaged (iters_sum < cap * batch).
 
     6 dB: decisively converged, so the plateau-crossing iteration is
-    robust to the routes' differing f32 association; at marginal SNR a
-    low-bit tau2 difference can legitimately shift one codeword's stop by
-    +-1 iteration (routes are parity-tested bitwise at tol=0 elsewhere).
-
-    The exact legs pin amp_encode_in_kernel=False so every route decodes
-    the bitwise-identical XLA-encoded y; a final leg turns the in-kernel
-    encode back on and checks error counters are unchanged with iters_sum
-    within the documented +-1/codeword encode-rounding band."""
+    robust to the routes' differing f32 association.  f32 transforms
+    ("high"): the collective FWHT rounds to bf16 at other points than the
+    GSPMD contractions, which can move a plateau crossing by an iteration
+    while the decisions stay equal."""
     T, B = 16, 16
-    base = dict(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=T,
-                amp_tol=1e-4, transform_precision="bf16",
-                amp_encode_in_kernel=False)
+    base = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=T,
+                       amp_tol=1e-4, transform_precision="high")
     tkeys = rngu.trial_keys(rngu.base_key(5), B)
     keys = ("bit_errors", "frame_errors", "section_errors", "iters_sum")
 
     def run(cfg, policy=None):
         m = SparcModel.build(cfg, ebno_db=6.0, policy=policy)
-        if policy is not None:
-            tk = jax.device_put(tkeys, policy.batch1())
-        else:
-            tk = tkeys
+        tk = (jax.device_put(tkeys, policy.batch1()) if policy is not None
+              else tkeys)
         out = jax.jit(m.run_block)(tk)
         return {k: int(v) for k, v in out.items() if k in keys}
 
-    ref = run(SparcConfig(**base, amp_kernel="xla"))
+    ref = run(base)
     assert ref["iters_sum"] < T * B, "early stop never engaged — bad point"
-    for kern in ("fused", "fused_split", "fused_slab"):
-        got = run(SparcConfig(**base, amp_kernel=kern))
-        assert got == ref, (kern, got, ref)
-    fused_cfg = SparcConfig(**base, amp_kernel="fused")
-    for shards in (1, 2):
-        mesh = make_mesh(section_shards=shards)
-        pol = ShardingPolicy(
-            mesh, section_axis="section" if shards > 1 else None)
-        with jax.sharding.set_mesh(mesh):
-            got = run(fused_cfg, policy=pol)
-        assert got == ref, (shards, got, ref)
-    # in-kernel encode: identical counters, stop within the encode-
-    # rounding band (x differs from the XLA encode at bf16 level, so a
-    # codeword's plateau crossing may shift by one iteration)
-    got = run(SparcConfig(**{**base, "amp_encode_in_kernel": True},
-                          amp_kernel="fused"))
-    for k in ("bit_errors", "frame_errors", "section_errors"):
-        assert got[k] == ref[k], (k, got, ref)
-    assert abs(got["iters_sum"] - ref["iters_sum"]) <= B, (got, ref)
-
-
-def test_fused_dp_in_kernel_encode_matches_single_device():
-    """In-kernel encode composes with pure-DP mesh policies (round-3
-    VERDICT missing #3): an 8-way DP shard_map around the mega-kernel
-    with per-device slices of the true-index tensor reproduces the
-    single-device in-kernel-encode counters bitwise on the same key tree
-    (same kernel, same per-codeword inputs).  Also checks the eligibility
-    gate actually engaged (policy.section_shards == 1)."""
-    cfg = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=12,
-                      amp_tol=1e-4, amp_kernel="fused",
-                      transform_precision="bf16")   # encode_in_kernel=True
-    model = SparcModel.build(cfg, ebno_db=5.0)
-    ref = _counters(model)
-    mesh = make_mesh(section_shards=1)
-    pol = ShardingPolicy(mesh, section_axis=None)
-    assert pol.section_shards == 1
-    model_dp = SparcModel.build(cfg, ebno_db=5.0, policy=pol)
+    shards, cfg = {"dp": (1, base), "s2": (2, base), "s4": (4, base),
+                   "collective": (2, base.replace(fwht_dist="collective"))
+                   }[route]
+    mesh = make_mesh(section_shards=shards)
+    pol = ShardingPolicy(mesh,
+                         section_axis="section" if shards > 1 else None)
     with jax.sharding.set_mesh(mesh):
-        got = _counters(model_dp, policy=pol)
-    assert got == ref
-    # section-sharded stays on the XLA encode (the one exclusion) and
-    # still matches: counters are encode-route-invariant at this point
-    mesh2 = make_mesh(section_shards=2)
-    pol2 = ShardingPolicy(mesh2)
-    assert pol2.section_shards == 2
-    model_sp = SparcModel.build(cfg, ebno_db=5.0, policy=pol2)
-    with jax.sharding.set_mesh(mesh2):
-        got2 = _counters(model_sp, policy=pol2)
-    assert got2 == ref
-
-
-def test_concat_in_kernel_encode_parity():
-    """ADVICE r3: the ConcatModel in-kernel-encode branches (run_block,
-    _stage_gen_amp_params, enc_idx re-synthesis in the pinned feedback
-    pass) were only parity-tested on the plain SPARC route.  At a
-    decisively-converged point: (a) in-kernel encode vs XLA encode give
-    identical error/bp counters; (b) run_block == run_block_staged inside
-    the in-kernel branch (same arithmetic, bitwise counters); (c) the
-    pure-DP mesh route equals the single-device route."""
-    from sparc_ldpc_tpu.config import ConcatConfig, LdpcConfig
-    from sparc_ldpc_tpu.models.concat import ConcatModel
-
-    base = ConcatConfig(
-        sparc=SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard",
-                          amp_iters=10, amp_tol=0.0, amp_kernel="fused",
-                          transform_precision="bf16"),
-        ldpc=LdpcConfig(kind="array", z=13, rows_b=3, cols_b=12,
-                        bp_iters=16, engine="qc", schedule="layered"),
-        f_prot=0.5, feedback_iters=3)
-    tk = rngu.trial_keys(rngu.base_key(9), 8)
-    keys = ("bit_errors", "frame_errors", "bp_ok", "trials")
-
-    m_in = ConcatModel.build(base, ebno_db=6.0)
-    assert m_in._enc_in_kernel
-    got_in = {k: int(v) for k, v in jax.jit(m_in.run_block)(tk).items()
-              if k in keys}
-    staged = {k: int(v) for k, v in m_in.run_block_staged(tk).items()
-              if k in keys}
-    assert staged == got_in
-
-    cfg_off = base.replace(sparc=base.sparc.replace(
-        amp_encode_in_kernel=False))
-    m_off = ConcatModel.build(cfg_off, ebno_db=6.0)
-    assert not m_off._enc_in_kernel
-    got_off = {k: int(v) for k, v in jax.jit(m_off.run_block)(tk).items()
-               if k in keys}
-    assert got_off == got_in   # decisive point: bf16 encode-rounding inert
-
-    mesh = make_mesh(section_shards=1)
-    pol = ShardingPolicy(mesh, section_axis=None)
-    m_dp = ConcatModel.build(base, ebno_db=6.0, policy=pol)
-    assert m_dp._enc_in_kernel
-    with jax.sharding.set_mesh(mesh):
-        tk_sh = jax.device_put(tk, pol.batch1())
-        got_dp = {k: int(v) for k, v in jax.jit(m_dp.run_block)(tk_sh).items()
-                  if k in keys}
-    assert got_dp == got_in
+        got = run(cfg, policy=pol)
+    assert got == ref, (route, got, ref)
 
 
 def test_campaign_runs_and_resumes(tmp_path):
@@ -282,13 +134,12 @@ def test_campaign_runs_and_resumes(tmp_path):
 
 
 def test_campaign_truthful_iters_and_throughput(tmp_path):
-    """Round-2 VERDICT weak #2/#3 + ADVICE: mean_iters reflects the
-    adaptive stop (not the cap), bits_per_s is None for 1-block and
-    journal-replayed points (never compile-polluted or replay-inflated),
-    and records carry bit_errors_sq + provenance meta."""
+    """mean_iters reflects the adaptive stop (not the cap), bits_per_s is
+    None for 1-block and journal-replayed points (never compile-polluted
+    or replay-inflated), and records carry bit_errors_sq + provenance
+    meta."""
     cfg = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=16,
-                      amp_tol=1e-4, amp_kernel="fused",
-                      transform_precision="bf16")
+                      amp_tol=1e-4, transform_precision="bf16")
     model = SparcModel.build(cfg, ebno_db=6.0)
     ccfg = CampaignConfig(ebno_grid_db=(6.0,), batch=8, min_frame_errors=1,
                           max_trials=16, base_seed=11)
@@ -297,7 +148,7 @@ def test_campaign_truthful_iters_and_throughput(tmp_path):
     assert 0 < rec["mean_iters"] < cfg.amp_iters, rec["mean_iters"]
     assert rec["preset"] == "unit"
     assert rec["bit_errors_sq"] >= 0
-    # pipelined dispatch (round 5): the budget check lags by the one
+    # pipelined dispatch: the budget check lags by the one
     # in-flight block, so the 16-trial cap is met after harvesting block
     # 1 while block 2 is already submitted -> 3 blocks, and the
     # compile-free steady measurement exists
@@ -435,34 +286,3 @@ def test_collective_fwht_model_matches_single_device():
     with jax.sharding.set_mesh(mesh):
         got = _counters(model_c, policy=pol)
     assert got == ref
-
-
-def test_concat_noise_in_kernel_cpu_fallback():
-    """amp_noise_in_kernel on a CPU backend must leave the concat trial
-    paths on the XLA noise draw (no interpreter PRNG): counters equal the
-    flag-off run bitwise on every route (monolithic + staged)."""
-    from sparc_ldpc_tpu.config import ConcatConfig, LdpcConfig
-    from sparc_ldpc_tpu.models.concat import ConcatModel
-
-    base = ConcatConfig(
-        sparc=SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard",
-                          amp_iters=8, amp_tol=0.0,
-                          amp_kernel="fused_split",
-                          transform_precision="bf16"),
-        ldpc=LdpcConfig(kind="array", z=13, rows_b=3, cols_b=12,
-                        bp_iters=12, engine="qc", schedule="layered"),
-        f_prot=0.5, feedback_iters=3)
-    tk = rngu.trial_keys(rngu.base_key(21), 6)
-    keys = ("bit_errors", "frame_errors", "bp_ok")
-    outs = []
-    for flag in (False, True):
-        m = ConcatModel.build(base.replace(sparc=base.sparc.replace(
-            amp_noise_in_kernel=flag)), ebno_db=6.0)
-        assert not m._noise_in_kernel   # CPU backend
-        mono = {k: int(v) for k, v in jax.jit(m.run_block)(tk).items()
-                if k in keys}
-        staged = {k: int(v) for k, v in m.run_block_staged(tk).items()
-                  if k in keys}
-        assert mono == staged
-        outs.append(mono)
-    assert outs[0] == outs[1]

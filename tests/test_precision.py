@@ -1,10 +1,12 @@
-"""Transform-precision validation (SURVEY.md §7 hard-part 2 numerics).
+"""Transform-precision and route validation (SURVEY.md §7 hard-part 2).
 
-The bf16 fast-transform path halves HBM traffic on TPU; these tests pin down
-that the induced quantization noise is far below channel noise: identical
-hard decisions and tau trajectories within 1% on a realistic decode.
-(On CPU the precision argument is a no-op for f32, but the bf16 path really
-does round through bfloat16, so this test is meaningful in CI.)
+The bf16 fast-transform path halves the bytes each transform moves; these
+tests pin down that the induced quantization noise is far below channel
+noise: identical hard decisions and tau trajectories within 1% on a
+realistic decode.  (On CPU the precision argument is a no-op for f32, but
+the bf16 path really does round through bfloat16, so this test is
+meaningful in CI.)  The XLA AMP route's decision-feedback pinning, SE
+schedule and early stop are anchored against the float64 oracle.
 """
 
 import numpy as np
@@ -17,32 +19,9 @@ from sparc_ldpc_tpu.config import SparcConfig
 from sparc_ldpc_tpu.models.amp import hard_indices
 from sparc_ldpc_tpu.models.sparc import SparcModel
 from sparc_ldpc_tpu.ops.fwht import fwht_mxu
+from sparc_ldpc_tpu.utils.compare import assert_decisions_match
 from sparc_ldpc_tpu.oracle.fwht import fwht_np
 
-
-def assert_decisions_match(beta_a, beta_b, rel_margin=2e-2, max_flips=0.01):
-    """Argmax decisions must agree wherever either route's top-2 relative
-    margin exceeds rel_margin.  Rationale: with bf16 transforms both routes
-    carry ~0.4% relative rounding noise (re-drawn whenever a kernel's f32
-    association changes), and T AMP iterations amplify it at near-tie
-    sections — measured max-rel beta deviation between the XLA scan and the
-    fused kernel is ~0.4 at T=8 on BOTH the round-2 and round-3 kernels.
-    A flip is only meaningful where the section was decisive on both
-    routes; sub-margin flips must also stay rare (< max_flips fraction)."""
-    a, b = np.asarray(beta_a), np.asarray(beta_b)
-    ia, ib = a.argmax(-1), b.argmax(-1)
-    mm = ia != ib
-    if not mm.any():
-        return
-    sa = np.sort(a, -1)
-    sb = np.sort(b, -1)
-    ga = (sa[..., -1] - sa[..., -2]) / np.maximum(sa[..., -1], 1e-30)
-    gb = (sb[..., -1] - sb[..., -2]) / np.maximum(sb[..., -1], 1e-30)
-    decisive = mm & (ga > rel_margin) & (gb > rel_margin)
-    assert not decisive.any(), (
-        f"{decisive.sum()} decisive flips at {np.argwhere(decisive)}; "
-        f"margins a={ga[decisive]}, b={gb[decisive]}")
-    assert mm.mean() <= max_flips, (mm.mean(), np.argwhere(mm))
 
 
 def test_bf16_fwht_error_small(rng):
@@ -93,29 +72,6 @@ def test_nspace_residual_matches_nspace():
                                np.asarray(r_n.tau2_trace), rtol=1e-4)
 
 
-def test_fused_amp_kernel_matches_xla_interpret():
-    """ops/amp_kernel.py interpret-mode vs XLA scan: identical decisions,
-    tau trace within 1% (bf16 matmuls in both)."""
-    from sparc_ldpc_tpu.models.amp import amp_decode
-
-    cfg = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=12,
-                      amp_tol=0.0, transform_precision="bf16")
-    m = SparcModel.build(cfg, ebno_db=5.0)
-    key = jax.random.key(2)
-    bits = jax.random.bernoulli(jax.random.fold_in(key, 0), 0.5,
-                                (3, cfg.k_bits)).astype(jnp.int32)
-    noise = jax.random.normal(jax.random.fold_in(key, 1), (3, cfg.n))
-    y = m.encode(bits) + noise * np.sqrt(m.sigma2)
-    r_xla = m.decode(y)
-    r_fus = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, T=cfg.amp_iters,
-                       tol=0.0, fused=True, fused_interpret=True)
-    np.testing.assert_array_equal(np.asarray(hard_indices(r_xla.beta)),
-                                  np.asarray(hard_indices(r_fus.beta)))
-    tx = np.asarray(r_xla.tau2_trace)
-    tf = np.asarray(r_fus.tau2_trace)
-    np.testing.assert_allclose(tf, tx, rtol=2e-2)
-
-
 def test_no_nans_under_debug_nans():
     """SURVEY.md §5 sanitizer analog: a full decode under jax.debug_nans
     (catches 0/0, inf propagation regressions in the hot loop)."""
@@ -126,349 +82,19 @@ def test_no_nans_under_debug_nans():
         assert int(out["trials"]) == 4
 
 
-@pytest.mark.parametrize("vpu_outer", [True, False])
-def test_split_fused_kernel_matches_xla_interpret(vpu_outer):
-    """Split fused variant (_amp_kernel_split: H_L = H_fa (x) H_fb) in
-    interpret mode vs the XLA scan — identical decisions, tau within 2%.
-    Covers both outer-stage paths: VPU tile butterflies and the
-    (f_a, f_b*M)-view matmul."""
-    import functools
-    import math
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    import sparc_ldpc_tpu.ops.amp_kernel as AK
-    from sparc_ldpc_tpu.ops.fwht import hadamard_factor
-    from sparc_ldpc_tpu.models.amp import amp_decode
-
-    cfg = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=10,
-                      amp_tol=0.0)
-    m = SparcModel.build(cfg, ebno_db=5.0)
-    key = jax.random.key(2)
-    bits = jax.random.bernoulli(jax.random.fold_in(key, 0), 0.5,
-                                (2, cfg.k_bits)).astype(jnp.int32)
-    noise = jax.random.normal(jax.random.fold_in(key, 1), (2, cfg.n))
-    y = m.encode(bits) + noise * np.sqrt(m.sigma2)
-    r_ref = m.decode(y)
-
-    B, L, M = 2, cfg.L, cfg.M
-    f_b, f_a = 16, L // 16
-    y_n = m.op.embed_y(y).reshape(B, L, M)
-    kernel = functools.partial(AK._amp_kernel_split, cfg.amp_iters, cfg.n,
-                               1.0, 1.0 / math.sqrt(cfg.n), f_a, f_b,
-                               1, M, vpu_outer,
-                               False, False, False, False, 0.0)
-    # flags: has_sched, has_pin, has_enc, has_noise; then tol
-    beta, trace = pl.pallas_call(
-        kernel,
-        out_shape=(jax.ShapeDtypeStruct((B, L, M), jnp.float32),
-                   jax.ShapeDtypeStruct((B, 8, 128), jnp.float32)),
-        grid=(B,),
-        in_specs=[
-            pl.BlockSpec((1, L, M), lambda b: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((L, M), lambda b: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((f_a, f_a), lambda b: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((f_b, f_b), lambda b: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((M, M), lambda b: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((L, 1), lambda b: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((L, 1), lambda b: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, L, M), lambda b: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8, 128), lambda b: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=[pltpu.VMEM((L, M), jnp.float32)] * 3,
-        input_output_aliases={0: 0},
-        interpret=True,
-    )(y_n, m.op.mask.reshape(L, M).astype(jnp.float32) / cfg.n,
-      hadamard_factor(f_a, jnp.bfloat16), hadamard_factor(f_b, jnp.bfloat16),
-      hadamard_factor(M, jnp.bfloat16),
-      (m.sq_npl / math.sqrt(cfg.n)).reshape(L, 1),
-      (m.sq_npl * math.sqrt(cfg.n)).reshape(L, 1))
-
-    np.testing.assert_array_equal(np.asarray(hard_indices(r_ref.beta)),
-                                  np.asarray(jnp.argmax(beta, axis=-1)))
-    tr = np.asarray(trace.reshape(B, -1)[:, : cfg.amp_iters]).T
-    np.testing.assert_allclose(tr, np.asarray(r_ref.tau2_trace), rtol=2e-2)
-
-
-def test_fused_split_m_split_matches_full_hm_interpret():
-    """Column-split M-stage (H_M = H_{m_a} (x) H_{m_b}, the on-chip default
-    for M > 128) vs the single X @ H_M matmul — same transform, so beta and
-    the tau trace agree to bf16 rounding."""
-    from sparc_ldpc_tpu.ops.amp_kernel import amp_fused
-
-    rng = np.random.default_rng(0)
-    B, L, M, T, P = 2, 64, 256, 6, 1.0
-    n = L * 8
-    y = jnp.asarray(rng.normal(size=(B, L, M)).astype(np.float32))
-    mask = jnp.asarray((rng.random((L, M)) < n / (L * M)).astype(np.float32))
-    sq = jnp.asarray(np.full(L, np.sqrt(n * P / L), np.float32))
-    b_full, t_full = amp_fused(y, mask, sq, P, n, T, interpret=True,
-                               split=True, f_b=16, m_b=M)
-    b_col, t_col = amp_fused(y, mask, sq, P, n, T, interpret=True,
-                             split=True, f_b=16, m_b=128)
-    # atol bound: bf16 transform noise (~0.4% rel) amplified over T
-    # iterations at near-tie entries; decisions must still agree wherever
-    # either variant is decisive (assert_decisions_match rationale).
-    np.testing.assert_allclose(np.asarray(b_col), np.asarray(b_full),
-                               atol=2e-2)
-    assert_decisions_match(b_full, b_col)
-    np.testing.assert_allclose(np.asarray(t_col), np.asarray(t_full),
-                               rtol=1e-3)
-
-
-@pytest.mark.parametrize("split,form", [(False, None), (True, None),
-                                        (None, "slab")])
-def test_fused_pinning_matches_xla_interpret(split, form):
-    """Decision-feedback pinning (App. A.7 step 5) on the fused kernel vs
-    the XLA scan: pinned rows overridden after every denoise, identical
-    decisions + tau trace (VERDICT round-1 missing #3)."""
-    from sparc_ldpc_tpu.models.amp import amp_decode
-
-    cfg = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=8,
-                      amp_tol=0.0, transform_precision="bf16")
-    m = SparcModel.build(cfg, ebno_db=5.0)
-    key = jax.random.key(3)
-    B = 3
-    bits = jax.random.bernoulli(jax.random.fold_in(key, 0), 0.5,
-                                (B, cfg.k_bits)).astype(jnp.int32)
-    noise = jax.random.normal(jax.random.fold_in(key, 1), (B, cfg.n))
-    y = m.encode(bits) + noise * np.sqrt(m.sigma2)
-    pin_mask = jnp.asarray(
-        np.random.default_rng(0).random((B, cfg.L)) < 0.4)
-    pin_idx = jax.random.randint(jax.random.fold_in(key, 2), (B, cfg.L),
-                                 0, cfg.M)
-    pin_oh = jax.nn.one_hot(pin_idx, cfg.M, dtype=jnp.float32)
-    kw = dict(T=cfg.amp_iters, tol=0.0, pinned_onehot=pin_oh,
-              pinned_mask=pin_mask)
-    r_xla = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, **kw)
-    r_fus = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, fused=True,
-                       fused_interpret=True, fused_split=split,
-                       fused_form=form, **kw)
-    assert_decisions_match(r_xla.beta, r_fus.beta)
-    np.testing.assert_allclose(np.asarray(r_fus.tau2_trace),
-                               np.asarray(r_xla.tau2_trace), rtol=2e-2)
-    # pinned rows really are the scaled one-hots
-    want = np.asarray(m.sq_npl)[None, :, None] * np.asarray(pin_oh)
-    got = np.asarray(r_fus.beta)
-    pm = np.asarray(pin_mask)
-    np.testing.assert_allclose(got[pm], want[pm], rtol=1e-6)
-
-
-@pytest.mark.parametrize("split,form", [(False, None), (True, None),
-                                        (None, "slab")])
-def test_fused_pinning_with_tol_matches_xla_interpret(split, form):
-    """Pinning + amp_tol together (the concat feedback pass ships both):
-    the in-kernel early stop and the pin override compose identically to
-    the XLA scan's freeze-mask + post-denoise override — equal decisions
-    AND equal per-codeword iteration counts on every kernel form.
-
-    tol=1e-2 on purpose: with 40% of sections pinned true, tau2 plateaus
-    so fast that successive relative deltas hover exactly around 1e-4,
-    where a low-bit cross-route difference legitimately flips the stop
-    (observed: equal-to-noise traces, stops 5 vs 11).  At 1e-2 the
-    crossing is a factor-17 drop and every route agrees exactly."""
-    from sparc_ldpc_tpu.models.amp import amp_decode
-
-    cfg = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=12,
-                      amp_tol=1e-2, transform_precision="bf16")
-    m = SparcModel.build(cfg, ebno_db=6.0)
-    key = jax.random.key(5)
-    B = 4
-    bits = jax.random.bernoulli(jax.random.fold_in(key, 0), 0.5,
-                                (B, cfg.k_bits)).astype(jnp.int32)
-    noise = jax.random.normal(jax.random.fold_in(key, 1), (B, cfg.n))
-    y = m.encode(bits) + noise * np.sqrt(m.sigma2)
-    from sparc_ldpc_tpu.utils.bits import bits_to_indices
-    pin_mask = jnp.asarray(
-        np.random.default_rng(1).random((B, cfg.L)) < 0.4)
-    pin_oh = jax.nn.one_hot(bits_to_indices(bits, cfg.logM), cfg.M,
-                            dtype=jnp.float32)
-    kw = dict(T=cfg.amp_iters, tol=cfg.amp_tol, pinned_onehot=pin_oh,
-              pinned_mask=pin_mask)
-    r_xla = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, **kw)
-    r_fus = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, fused=True,
-                       fused_interpret=True, fused_split=split,
-                       fused_form=form, **kw)
-    assert int(jnp.sum(r_xla.iters)) < cfg.amp_iters * B, "stop not engaged"
-    np.testing.assert_array_equal(np.asarray(r_xla.iters),
-                                  np.asarray(r_fus.iters))
-    np.testing.assert_array_equal(np.asarray(hard_indices(r_xla.beta)),
-                                  np.asarray(hard_indices(r_fus.beta)))
-
-
-@pytest.mark.parametrize("split,form", [(False, None), (True, None),
-                                        (None, "slab")])
-def test_fused_se_schedule_matches_xla_interpret(split, form):
-    """SE tau2 schedule (SMEM constant) on the fused kernel vs the XLA
-    scan: schedule replaces the online estimate identically."""
-    from sparc_ldpc_tpu.models.amp import amp_decode
-
-    cfg = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=8,
-                      amp_tol=0.0, transform_precision="bf16")
-    m = SparcModel.build(cfg, ebno_db=5.0)
-    key = jax.random.key(5)
-    bits = jax.random.bernoulli(jax.random.fold_in(key, 0), 0.5,
-                                (2, cfg.k_bits)).astype(jnp.int32)
-    noise = jax.random.normal(jax.random.fold_in(key, 1), (2, cfg.n))
-    y = m.encode(bits) + noise * np.sqrt(m.sigma2)
-    sched = jnp.asarray(
-        np.geomspace(1.0 + m.sigma2, m.sigma2, cfg.amp_iters),
-        dtype=jnp.float32)
-    kw = dict(T=cfg.amp_iters, tol=0.0, tau2_schedule=sched)
-    r_xla = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, **kw)
-    r_fus = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, fused=True,
-                       fused_interpret=True, fused_split=split,
-                       fused_form=form, **kw)
-    np.testing.assert_array_equal(np.asarray(hard_indices(r_xla.beta)),
-                                  np.asarray(hard_indices(r_fus.beta)))
-    np.testing.assert_allclose(np.asarray(r_fus.tau2_trace),
-                               np.asarray(r_xla.tau2_trace), rtol=1e-6)
-
-
-@pytest.mark.parametrize("L,M", [(256, 64), (64, 256)])
-def test_fused_split_config_path_matches_xla_interpret(L, M):
-    """amp_kernel="fused_split" (forced 3-factor split at L <= 1024, the
-    bench default) through the SparcModel path vs the XLA scan.  The
-    (64, 256) case exercises the auto column-split M-stage (m_b=128)
-    end-to-end against the XLA ground truth (advisor round-1 finding)."""
-    cfg = SparcConfig(L=L, M=M, R=1.0, op_kind="hadamard", amp_iters=10,
-                      amp_tol=0.0, transform_precision="bf16",
-                      amp_kernel="fused_split")
-    cfg_x = SparcConfig(L=L, M=M, R=1.0, op_kind="hadamard", amp_iters=10,
-                        amp_tol=0.0, transform_precision="bf16")
-    m_s, m_x = SparcModel.build(cfg, ebno_db=5.0), SparcModel.build(cfg_x,
-                                                                    ebno_db=5.0)
-    key = jax.random.key(7)
-    bits = jax.random.bernoulli(jax.random.fold_in(key, 0), 0.5,
-                                (2, cfg.k_bits)).astype(jnp.int32)
-    noise = jax.random.normal(jax.random.fold_in(key, 1), (2, cfg.n))
-    y = m_x.encode(bits) + noise * np.sqrt(m_x.sigma2)
-    r_s = m_s.decode(y, fused_interpret=True)
-    r_x = m_x.decode(y)
-    np.testing.assert_array_equal(np.asarray(hard_indices(r_x.beta)),
-                                  np.asarray(hard_indices(r_s.beta)))
-    np.testing.assert_allclose(np.asarray(r_s.tau2_trace),
-                               np.asarray(r_x.tau2_trace), rtol=2e-2)
-
-
-@pytest.mark.parametrize("L,M", [(256, 64), (64, 256), (256, 256)])
-def test_fused_slab_config_path_matches_xla_interpret(L, M):
-    """amp_kernel="fused_slab" (block-value dataflow kernel,
-    ops/amp_kernel.py `_amp_kernel_slab`) through the SparcModel path vs
-    the XLA scan: identical decisions, tau trace within f32-reassociation
-    noise (the slab form accumulates tau2/||beta||^2/softmax row sums as
-    per-slab partials, so traces are not bitwise)."""
-    cfg = SparcConfig(L=L, M=M, R=1.0, op_kind="hadamard", amp_iters=8,
-                      amp_tol=0.0, transform_precision="bf16",
-                      amp_kernel="fused_slab")
-    m = SparcModel.build(cfg, ebno_db=5.0)
-    ref = SparcModel.build(cfg.replace(amp_kernel="xla"), ebno_db=5.0)
-    key = jax.random.key(7)
-    bits = jax.random.bernoulli(jax.random.fold_in(key, 0), 0.5,
-                                (2, cfg.k_bits)).astype(jnp.int32)
-    noise = jax.random.normal(jax.random.fold_in(key, 1), (2, cfg.n))
-    y = m.encode(bits) + noise * np.sqrt(m.sigma2)
-    r_ref = ref.decode(y)
-    r_slab = m.decode(y)
-    np.testing.assert_array_equal(np.asarray(hard_indices(r_ref.beta)),
-                                  np.asarray(hard_indices(r_slab.beta)))
-    np.testing.assert_allclose(np.asarray(r_slab.tau2_trace),
-                               np.asarray(r_ref.tau2_trace), rtol=2e-2)
-    np.testing.assert_allclose(np.asarray(r_slab.beta),
-                               np.asarray(r_ref.beta),
-                               rtol=5e-2, atol=5e-2)
-
-
-def test_fused_split_early_stop_matches_xla_interpret():
-    """In-kernel per-codeword early stop (split kernel, amp_tol > 0) vs
-    the XLA scan's masked freeze: identical per-codeword iteration counts,
-    identical decisions, frozen trace entries copied like the scan's."""
-    from sparc_ldpc_tpu.models.amp import amp_decode
-
-    cfg = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=16,
-                      amp_tol=1e-4, transform_precision="bf16")
-    m = SparcModel.build(cfg, ebno_db=6.0)
-    key = jax.random.key(3)
-    B = 4
-    bits = jax.random.bernoulli(jax.random.fold_in(key, 0), 0.5,
-                                (B, cfg.k_bits)).astype(jnp.int32)
-    noise = jax.random.normal(jax.random.fold_in(key, 1), (B, cfg.n))
-    y = m.encode(bits) + noise * np.sqrt(m.sigma2)
-    kw = dict(T=cfg.amp_iters, tol=cfg.amp_tol)
-    r_xla = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, **kw)
-    r_fus = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, fused=True,
-                       fused_interpret=True, fused_split=True, **kw)
-    np.testing.assert_array_equal(np.asarray(r_xla.iters),
-                                  np.asarray(r_fus.iters))
-    assert int(np.max(np.asarray(r_xla.iters))) < cfg.amp_iters, \
-        "test point must actually stop early"
-    np.testing.assert_array_equal(np.asarray(hard_indices(r_xla.beta)),
-                                  np.asarray(hard_indices(r_fus.beta)))
-    np.testing.assert_allclose(np.asarray(r_fus.tau2_trace),
-                               np.asarray(r_xla.tau2_trace), rtol=2e-2)
-
-
-def test_fused_split_early_stop_with_pinning_interpret():
-    """Early stop + decision-feedback pinning together (the concat preset's
-    feedback pass since amp_tol=1e-4): iteration counts and decisions match
-    the XLA scan's masked freeze."""
-    from sparc_ldpc_tpu.models.amp import amp_decode
-
-    # 8 dB: every codeword converges decisively (|d tau2| plunges through
-    # tol*tau2), so the threshold crossing is robust to f32 association
-    cfg = SparcConfig(L=64, M=64, R=1.0, op_kind="hadamard", amp_iters=12,
-                      amp_tol=1e-4, transform_precision="bf16")
-    m = SparcModel.build(cfg, ebno_db=8.0)
-    key = jax.random.key(11)
-    B = 3
-    bits = jax.random.bernoulli(jax.random.fold_in(key, 0), 0.5,
-                                (B, cfg.k_bits)).astype(jnp.int32)
-    noise = jax.random.normal(jax.random.fold_in(key, 1), (B, cfg.n))
-    y = m.encode(bits) + noise * np.sqrt(m.sigma2)
-    pin_mask = jnp.asarray(np.random.default_rng(1).random((B, cfg.L)) < 0.4)
-    pin_idx = jax.random.randint(jax.random.fold_in(key, 2), (B, cfg.L),
-                                 0, cfg.M)
-    pin_oh = jax.nn.one_hot(pin_idx, cfg.M, dtype=jnp.float32)
-    kw = dict(T=cfg.amp_iters, tol=cfg.amp_tol, pinned_onehot=pin_oh,
-              pinned_mask=pin_mask)
-    r_xla = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, **kw)
-    r_fus = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, fused=True,
-                       fused_interpret=True, fused_split=True, **kw)
-    # iteration counts can differ by a few when |d tau2| hovers exactly at
-    # tol*tau2 (f32 association flips the threshold crossing) — decisions
-    # and the pre-stop trace must still agree
-    assert int(np.max(np.abs(np.asarray(r_xla.iters)
-                             - np.asarray(r_fus.iters)))) <= 4
-    np.testing.assert_array_equal(np.asarray(hard_indices(r_xla.beta)),
-                                  np.asarray(hard_indices(r_fus.beta)))
-    t_min = int(min(np.min(np.asarray(r_xla.iters)),
-                    np.min(np.asarray(r_fus.iters))))
-    np.testing.assert_allclose(np.asarray(r_fus.tau2_trace)[:t_min],
-                               np.asarray(r_xla.tau2_trace)[:t_min],
-                               rtol=2e-2)
-
-
 def test_llr_beta_fold_matches_scores_path():
     """The shipped LLR extraction folds the AMP beta directly
     (models/concat._protected_llrs_from_beta); the scores-lse form and a
     float64 ground truth must agree with it to f32-reassociation level,
     and the BP decisions downstream must be identical on a realistic
-    block (round-5 exp-once/beta-fold rewrite)."""
+    block."""
     from sparc_ldpc_tpu.config import PRESETS
     from sparc_ldpc_tpu.models.concat import ConcatModel
     from sparc_ldpc_tpu.utils import rng as rngu
 
     m = ConcatModel.build(PRESETS["concat"], ebno_db=3.0)
     tkeys = rngu.trial_keys(rngu.base_key(3), 4)
-    _, _, beta, _, _ = m._stage_gen_amp(tkeys)
+    _, _, beta, _ = m._stage_gen_amp(tkeys)
     post = beta / m.sparc.sq_npl[None, :, None]
     scores = jnp.log(jnp.maximum(post, jnp.finfo(jnp.float32).tiny))
     llr_b = np.asarray(m._protected_llrs_from_beta(beta))
@@ -489,3 +115,108 @@ def test_llr_beta_fold_matches_scores_path():
     cw_s, ok_s, _ = m._bp_from_llr(jnp.asarray(llr_s))
     np.testing.assert_array_equal(np.asarray(cw_b), np.asarray(cw_s))
     np.testing.assert_array_equal(np.asarray(ok_b), np.asarray(ok_s))
+
+
+# --------------------------------------- XLA route vs the float64 oracle
+#
+# The XLA scan (models.amp.amp_decode) at transform_precision="highest"
+# against oracle.sparc.amp_decode on the same y, codeword by codeword.
+# Tolerances: both sides run the same recursion, the JAX side in f32, so
+# the tau2 trajectories agree to f32 accumulation level — 1e-3 relative
+# bounds T <= 16 iterations of ~1e-6 relative drift amplified by the
+# Onsager feedback; decisions use the margin-aware rule above.
+
+ORACLE_SHAPES = [(64, 64), (256, 64), (64, 256)]
+
+
+def _oracle_case(L, M, ebno, B, seed, **cfg_kw):
+    from sparc_ldpc_tpu.oracle import sparc as osparc
+
+    cfg = SparcConfig(L=L, M=M, R=1.0, op_kind="hadamard",
+                      transform_precision="highest", **cfg_kw)
+    m = SparcModel.build(cfg, ebno_db=ebno)
+    key = jax.random.key(seed)
+    bits = jax.random.bernoulli(jax.random.fold_in(key, 0), 0.5,
+                                (B, cfg.k_bits)).astype(jnp.int32)
+    noise = jax.random.normal(jax.random.fold_in(key, 1), (B, cfg.n))
+    y = m.encode(bits) + noise * np.sqrt(m.sigma2)
+    return cfg, m, bits, y, osparc.make_operator(cfg)
+
+
+def _oracle_decode(cfg, m, y, op, **kw):
+    from sparc_ldpc_tpu.oracle import sparc as osparc
+
+    y64 = np.asarray(y, np.float64)
+    return [osparc.amp_decode(y64[b], cfg, m.p_alloc, op,
+                              **{k: (v[b] if k.startswith("pinned") else v)
+                                 for k, v in kw.items()})
+            for b in range(y64.shape[0])]
+
+
+@pytest.mark.parametrize("L,M", ORACLE_SHAPES)
+def test_xla_pinning_matches_oracle(L, M):
+    """Decision-feedback pinning (App. A.7 step 5): 40% of sections pinned
+    to their true indices; pinned rows are exactly the scaled one-hots and
+    the free sections decide like the float64 oracle."""
+    from sparc_ldpc_tpu.models.amp import amp_decode
+    from sparc_ldpc_tpu.utils.bits import bits_to_indices
+
+    cfg, m, bits, y, op = _oracle_case(L, M, 5.0, 3, 3, amp_iters=8,
+                                       amp_tol=0.0)
+    B = y.shape[0]
+    pin_mask = np.random.default_rng(0).random((B, L)) < 0.4
+    pin_idx = np.asarray(bits_to_indices(bits, cfg.logM))
+    r = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, T=cfg.amp_iters,
+                   tol=0.0, pinned_idx=jnp.asarray(pin_idx),
+                   pinned_mask=jnp.asarray(pin_mask))
+    orc = _oracle_decode(cfg, m, y, op, pinned_idx=pin_idx,
+                         pinned_mask=pin_mask)
+    beta_o = np.stack([o.beta.reshape(L, M) for o in orc])
+    assert_decisions_match(r.beta, beta_o)
+    np.testing.assert_allclose(np.asarray(r.tau2_trace),
+                               np.stack([o.tau2_trace for o in orc], 1),
+                               rtol=1e-3)
+    want = np.asarray(m.sq_npl)[None, :, None] * np.eye(M)[pin_idx]
+    np.testing.assert_allclose(np.asarray(r.beta)[pin_mask],
+                               want[pin_mask], rtol=1e-6)
+
+
+@pytest.mark.parametrize("L,M", ORACLE_SHAPES)
+def test_xla_se_schedule_matches_oracle(L, M):
+    """A fixed tau2 schedule replaces the online estimate identically on
+    both sides (amp_tol=0: schedule mode never stops early)."""
+    from sparc_ldpc_tpu.models.amp import amp_decode
+
+    cfg, m, bits, y, op = _oracle_case(L, M, 5.0, 2, 5, amp_iters=8,
+                                       amp_tol=0.0)
+    sched = np.geomspace(1.0 + m.sigma2, m.sigma2,
+                         cfg.amp_iters).astype(np.float32)
+    r = amp_decode(y, m.op, m.sq_npl, cfg.P, cfg.n, T=cfg.amp_iters,
+                   tol=0.0, tau2_schedule=jnp.asarray(sched))
+    orc = _oracle_decode(cfg, m, y, op, tau2_schedule=sched)
+    assert_decisions_match(r.beta,
+                           np.stack([o.beta.reshape(L, M) for o in orc]))
+    np.testing.assert_allclose(np.asarray(r.tau2_trace),
+                               np.stack([o.tau2_trace for o in orc], 1),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("L,M", ORACLE_SHAPES)
+def test_xla_early_stop_matches_oracle(L, M):
+    """Per-codeword early stop (amp_tol > 0): the XLA scan's freeze mask
+    stops each codeword at the oracle's `break` iteration, with the same
+    decisions and the same trace up to the stop.  6 dB is decisively
+    converged, so the threshold crossing is robust to f32 vs float64."""
+    cfg, m, bits, y, op = _oracle_case(L, M, 6.0, 4, 3, amp_iters=16,
+                                       amp_tol=1e-4)
+    r = m.decode(y)
+    orc = _oracle_decode(cfg, m, y, op)
+    its = np.array([o.iters for o in orc])
+    assert its.max() < cfg.amp_iters, "test point must actually stop early"
+    np.testing.assert_array_equal(np.asarray(r.iters), its)
+    assert_decisions_match(r.beta,
+                           np.stack([o.beta.reshape(L, M) for o in orc]))
+    tr = np.asarray(r.tau2_trace)
+    for b, o in enumerate(orc):
+        np.testing.assert_allclose(tr[: o.iters, b], o.tau2_trace,
+                                   rtol=1e-3)

@@ -1,4 +1,4 @@
-"""Statistical integration tests (SURVEY.md §4.3): MC BER of the TPU path
+"""Statistical integration tests (SURVEY.md §4.3): MC BER of the JAX path
 within binomial confidence bands of the oracle at a fixed operating point."""
 
 import numpy as np
@@ -27,7 +27,7 @@ def test_ber_within_binomial_ci_of_oracle():
                 for s in range(n_trials_o))
     rate_o = sec_o / (n_trials_o * cfg.L)
 
-    # TPU path (CPU backend in CI): batched
+    # JAX path (CPU backend in CI): batched
     model = SparcModel.build(cfg, ebno_db=ebno)
     B = 256
     out = model.run_trials(jax.random.key(123), batch=B)
@@ -40,7 +40,7 @@ def test_ber_within_binomial_ci_of_oracle():
                                        + 1 / (B * cfg.L)))
     assert rate_o > 0 or rate_j > 0, "operating point has no errors; move it"
     assert abs(rate_o - rate_j) < 4 * std + 1e-9, (
-        f"oracle {rate_o:.4f} vs tpu-path {rate_j:.4f} (std {std:.4f})")
+        f"oracle {rate_o:.4f} vs jax-path {rate_j:.4f} (std {std:.4f})")
 
 
 def test_plot_command(tmp_path):
